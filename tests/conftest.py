@@ -11,3 +11,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running convergence tests (deselected by `make test-fast`)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); skips without one",
+    )
