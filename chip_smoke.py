@@ -10,10 +10,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. build    compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
             with nvcc (into ``build/torch_kernels/``) and prints the seconds.
 3. kernels  holds each kernel against its plain torch version on the card
-            over n × D × {f32, bf16}, checks relay_mix_2d's backward and that
-            two calls are bitwise equal, then times each kernel, its plain
-            version and one PyTorch call for the same function, beside the
-            card's bound for the work.
+            over n × D × {f32, bf16} × {Δ contiguous, Δ a row slice whose
+            base address is off 16 bytes}, checks that each case's two
+            calls are bitwise equal and relay_mix_2d's backward, then times
+            each kernel, its plain version and one PyTorch call for the same
+            function, beside the card's bound for the work; prints the fused
+            kernel's launch plan (vector bytes, grid, resident blocks an SM)
+            at the main shape.
 4. main     ColRel rounds of ResNet-20/GN at full width (D = 272,282) for
             n = 10 clients through ``FLSimulator``, four times on the same
             τ and batches: colrel on ``hopper`` and on ``einsum``,
@@ -30,6 +33,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,9 +50,12 @@ MAIN_SHAPE = (N_CLIENTS, RESNET20_D)
 LARGE_SHAPE = (8, 10_000_000)  # the JAX package's relay_sweep_1e7 size
 
 # kernel sweep and tolerances: f32 atol 1e-5 + rtol 1e-5 (sum order differs);
-# bf16 one bf16 ulp of the output (rtol 2^-7) + the same f32 atol
-SWEEP_N = (1, 7, 10, 64, 128, 300)
-SWEEP_D = (100, 5000, RESNET20_D)
+# bf16 one bf16 ulp of the output (rtol 2^-7) + the same f32 atol.  Besides
+# the main path's shape: D below one vector (1, 3) and odd (4,097, D + 1);
+# n across the fused kernel's origin chunks (6, 12 and 24 origins for 16-,
+# 8- and 4- or 2-byte loads; 16 for a chunk of 16)
+SWEEP_N = (1, 7, 10, 12, 13, 15, 16, 17, 24, 25, 64, 128, 300)
+SWEEP_D = (1, 3, 100, 4097, 5000, RESNET20_D, RESNET20_D + 1)
 ATOL, RTOL_F32, RTOL_BF16 = 1e-5, 1e-5, 2.0**-7
 PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
 
@@ -128,15 +135,27 @@ def phase_device() -> str:
     return smi
 
 
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel, what ptxas -v says of it): registers, shared memory, and
+    spills where there are any."""
+    rows, kernel = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        spills = "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+        if "registers" in line or spills:
+            rows.append((kernel, line.split(":", 1)[-1].strip()))
+    return rows
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
 
     res = build.build(verbose=True)
     print(f"build: {res.seconds:.2f} s nvcc -> {os.path.relpath(res.path, ROOT)}")
-    for line in res.log.splitlines():
-        spills = "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
-        if "registers" in line or spills:
-            print(f"  ptxas {line.strip()}")
+    for kernel, line in ptxas_usage(res.log):
+        print(f"  ptxas {kernel}: {line}")
 
 
 def phase_kernels() -> dict:
@@ -144,38 +163,48 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import relay_mix as k
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     worst = {("mix", "f32"): 0.0, ("mix", "bf16"): 0.0,
              ("fused", "f32"): 0.0, ("fused", "bf16"): 0.0}
     main_err = {}
     cases = 0
     for n in SWEEP_N:
         for D in SWEEP_D:
-            A = (torch.randn(n, n, generator=gen) / math.sqrt(n)).to(dev)
-            c = (torch.randn(n, generator=gen) / math.sqrt(n)).to(dev)
-            d32 = torch.randn(n, D, generator=gen).to(dev)
+            A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
+            c = torch.randn(n, generator=gen, device=dev) / math.sqrt(n)
+            big32 = torch.randn(n + 1, D, generator=gen, device=dev)
             for tag, dt, rtol in (("f32", torch.float32, RTOL_F32),
                                   ("bf16", torch.bfloat16, RTOL_BF16)):
-                d = d32.to(dt)
-                e_mix = check_close(f"relay_mix_2d n={n} D={D} {tag}", k.relay_mix_2d(A, d),
-                                    ref.relay_mix_2d(A.to(dt), d), rtol)
-                e_fused = check_close(f"fused_aggregate_2d n={n} D={D} {tag}",
-                                      k.fused_aggregate_2d(c, d),
-                                      ref.fused_aggregate_2d(c.to(dt), d), rtol)
-                worst["mix", tag] = max(worst["mix", tag], e_mix)
-                worst["fused", tag] = max(worst["fused", tag], e_fused)
-                if (n, D) == MAIN_SHAPE and tag == "f32":
-                    main_err = {"mix": e_mix, "fused": e_fused}
-                cases += 2
+                big = big32.to(dt)
+                # Δ contiguous, and a row slice of an (n + 1, D) buffer: also
+                # contiguous, its base a row pitch further (off 16 bytes
+                # unless 16 divides the pitch)
+                for layout, d in (("", big[:n]), (" row slice", big[1:])):
+                    name = f"n={n} D={D} {tag}{layout}"
+                    m = k.relay_mix_2d(A, d)
+                    e_mix = check_close(f"relay_mix_2d {name}", m,
+                                        ref.relay_mix_2d(A.to(dt), d), rtol)
+                    u = k.fused_aggregate_2d(c, d)
+                    e_fused = check_close(f"fused_aggregate_2d {name}", u,
+                                          ref.fused_aggregate_2d(c.to(dt), d), rtol)
+                    # no atomics: a second call is bitwise equal
+                    if not (torch.equal(k.relay_mix_2d(A, d), m)
+                            and torch.equal(k.fused_aggregate_2d(c, d), u)):
+                        fail(f"{name}: two calls of a kernel differ")
+                    worst["mix", tag] = max(worst["mix", tag], e_mix)
+                    worst["fused", tag] = max(worst["fused", tag], e_fused)
+                    if (n, D) == MAIN_SHAPE and tag == "f32" and not layout:
+                        main_err = {"mix": e_mix, "fused": e_fused}
+                    cases += 2
     torch.cuda.synchronize()
-    print(f"kernels: {cases} cases within tolerance; max |Δ| "
+    print(f"kernels: {cases} cases within tolerance, each call bitwise repeatable; max |Δ| "
           + ", ".join(f"{a} {b} {v:.3g}" for (a, b), v in worst.items()))
 
     # backward of the mix: (dA, dΔ) against autograd through the plain version
     for n, D in ((5, 700), MAIN_SHAPE):
-        A = (torch.randn(n, n, generator=gen) / math.sqrt(n)).to(dev)
-        d = torch.randn(n, D, generator=gen).to(dev)
-        cot = torch.randn(n, D, generator=gen).to(dev)
+        A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
+        d = torch.randn(n, D, generator=gen, device=dev)
+        cot = torch.randn(n, D, generator=gen, device=dev)
         grads = []
         for fn in (k.relay_mix_2d, ref.relay_mix_2d):
             A_ = A.clone().requires_grad_(True)
@@ -186,25 +215,15 @@ def phase_kernels() -> dict:
         check_close(f"relay_mix_2d dΔ n={n} D={D}", grads[0][1], grads[1][1], RTOL_F32)
     print("kernels: relay_mix_2d backward (dA, dΔ) matches autograd through the plain version")
 
-    # determinism: no atomics, so two calls are bitwise equal
-    n, D = MAIN_SHAPE
-    A = torch.randn(n, n, generator=gen).to(dev)
-    c = torch.randn(n, generator=gen).to(dev)
-    d = torch.randn(n, D, generator=gen).to(dev)
-    if not (torch.equal(k.relay_mix_2d(A, d), k.relay_mix_2d(A, d))
-            and torch.equal(k.fused_aggregate_2d(c, d), k.fused_aggregate_2d(c, d))):
-        fail("kernels are not bitwise deterministic")
-    print("kernels: two calls are bitwise equal")
-
     # times: kernel, plain version, one PyTorch call; f32 as on the main path
     timing = {"relay_mix_2d": {}, "fused_aggregate_2d": {}}
     for label, (n, D) in (("main", MAIN_SHAPE), ("large", LARGE_SHAPE)):
         # rotate over enough Δ copies that the working set exceeds 2× L2,
         # so each call finds Δ in device memory, as the round does
         copies = max(1, math.ceil(2 * L2_BYTES / (4 * n * D)))
-        A = (torch.randn(n, n, generator=gen) / math.sqrt(n)).to(dev)
-        c = (torch.randn(n, generator=gen) / math.sqrt(n)).to(dev)
-        ds = [torch.randn(n, D, device=dev) for _ in range(copies)]
+        A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
+        c = torch.randn(n, generator=gen, device=dev) / math.sqrt(n)
+        ds = [torch.randn(n, D, generator=gen, device=dev) for _ in range(copies)]
         reps = 200 if label == "main" else 40
         mix_args = [(A, d) for d in ds]
         fused_args = [(c, d) for d in ds]
@@ -230,6 +249,12 @@ def phase_kernels() -> dict:
             }
             if label == "main":
                 t["ms_l2_resident"] = device_ms(kern, args[:1], reps)
+            if name == "fused_aggregate_2d":
+                t["plan"] = {"f32": k.fused_aggregate_plan(ds[0]),
+                             "bf16": k.fused_aggregate_plan(ds[0].to(torch.bfloat16))}
+                # information, not a gate: cuBLAS sums in another order
+                t["bitwise_equal_c_at_delta"] = torch.equal(
+                    k.fused_aggregate_2d(c, ds[0]), c @ ds[0])
             timing[name][label] = t
             print(f"time {name} {label} (n={n}, D={D}, {copies} Δ copies): "
                   + json.dumps({key: v for key, v in t.items() if key != "shape"}))
@@ -390,6 +415,7 @@ def main() -> int:
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
             "library_ms": main_t["library_ms"],
             "ms_l2_resident": main_t["ms_l2_resident"],
+            **({"plan": main_t["plan"]} if "plan" in main_t else {}),
             "large": {key: large_t[key] for key in
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })

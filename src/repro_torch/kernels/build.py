@@ -35,6 +35,13 @@ _LAUNCHER_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
 ]
+# and the fused kernel's launch plan (launches nothing):
+#   int fused_aggregate_2d_plan(const void* delta, void* out, int n,
+#                               long long D, int dtype, int* plan)
+_PLAN_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.POINTER(ctypes.c_int),
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,4 +103,6 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCHER_ARGTYPES
         fn.restype = ctypes.c_int
+    lib.fused_aggregate_2d_plan.argtypes = _PLAN_ARGTYPES
+    lib.fused_aggregate_2d_plan.restype = ctypes.c_int
     return lib

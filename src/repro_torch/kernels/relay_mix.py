@@ -3,8 +3,19 @@
 u = c·Δ (``fused_aggregate_2d``).
 
 Shape regime: A is tiny ((n, n), n ≈ 10 clients on the main path) and Δ is
-long ((n, D), D = the model's parameter count).  Both products are bound by
-device-memory bytes; the design notes sit in ``csrc/relay_mix.cu``.
+long ((n, D), D = the model's parameter count).  The mix is bound by
+device-memory bytes.  The fused reduction reads n·D elements once: at the
+main-path shape (10, 272,282) f32 what bounds it is first the launch and the
+ramp until enough loads are in flight, then the bytes; at (8, 10⁷) the
+bytes.  Its kernel is built for that: one wave of blocks (the card's SMs ×
+the kernel's resident blocks an SM, capped at the column tiles) striding
+over column tiles, c staged in shared memory once a block, V columns a
+thread read as one vector, and a chunk of origins' loads in flight before
+the first FMA.  The vector is the widest of 16, 8 or 4 bytes that divides
+Δ's base address, the output's and the row pitch D·sizeof(dtype) (else one
+element): f32 at the main shape takes 8-byte loads, bf16 4-byte ones.
+:func:`fused_aggregate_plan` reports the choice.  The design notes sit in
+``csrc/relay_mix.cu``.
 
 Each wrapper checks its operands and then, by the device of Δ:
 
@@ -20,6 +31,8 @@ counterpart of the Pallas kernel's ``custom_vjp``): dΔ = Aᵀ·g runs the same
 kernel, dA = g·Δᵀ is a small f32 product cast to A's dtype.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -109,3 +122,21 @@ def fused_aggregate_2d(coeffs: torch.Tensor, delta: torch.Tensor) -> torch.Tenso
         return _ref.fused_aggregate_2d(coeffs.to(delta.dtype), delta)
     out = torch.empty(delta.shape[1], dtype=delta.dtype, device=delta.device)
     return _launch("fused_aggregate_2d", coeffs, delta, out)
+
+
+def fused_aggregate_plan(delta: torch.Tensor) -> dict:
+    """The launch :func:`fused_aggregate_2d` makes for this CUDA Δ (into an
+    output from torch's allocator): ``vec_bytes`` (bytes a load),
+    ``grid`` (blocks) and ``blocks_per_sm`` (resident blocks an SM).
+    Launches nothing."""
+    if delta.device.type != "cuda" or delta.dim() != 2 or delta.dtype not in _DTYPE_CODES:
+        raise ValueError("fused_aggregate_plan: Δ must be a 2-D f32 or bf16 CUDA tensor")
+    n, D = delta.shape
+    out = torch.empty(D, dtype=delta.dtype, device=delta.device)
+    plan = (ctypes.c_int * 3)()
+    with torch.cuda.device(delta.device):
+        err = build.library().fused_aggregate_2d_plan(
+            delta.data_ptr(), out.data_ptr(), n, D, _DTYPE_CODES[delta.dtype], plan)
+    if err != 0:
+        raise RuntimeError(f"fused_aggregate_plan: CUDA error {err}")
+    return {"vec_bytes": plan[0], "grid": plan[1], "blocks_per_sm": plan[2]}

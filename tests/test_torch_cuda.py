@@ -29,29 +29,60 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(n, D, dtype, dev):
-    gen = torch.Generator().manual_seed(n * 100_003 + D)
-    A = (torch.randn(n, n, generator=gen) / math.sqrt(n)).to(dev)
-    c = (torch.randn(n, generator=gen) / math.sqrt(n)).to(dev)
-    d = torch.randn(n, D, generator=gen).to(dev, dtype)
+def _inputs(n, D, dtype, dev, layout="contiguous"):
+    """A, c and Δ (n, D) from a seed; Δ contiguous, or a row slice big[1:] of
+    an (n + 1, D) buffer, or an (n, D) view of a flat buffer from its second
+    element (both contiguous, their base addresses offset by a row or by one
+    element)."""
+    gen = torch.Generator(device=dev).manual_seed(n * 100_003 + D)
+    A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
+    c = torch.randn(n, generator=gen, device=dev) / math.sqrt(n)
+    if layout == "contiguous":
+        d = torch.randn(n, D, generator=gen, device=dev).to(dtype)
+    elif layout == "row_slice":
+        d = torch.randn(n + 1, D, generator=gen, device=dev).to(dtype)[1:]
+    else:
+        d = torch.randn(n * D + 1, generator=gen, device=dev).to(dtype)[1:].view(n, D)
     return A, c, d
 
 
-@pytest.mark.parametrize("n", [1, 7, 10, 64, 128, 300])
-@pytest.mark.parametrize("D", [100, 5000, 272_282])
+def _vec_bytes(d):
+    """The fused kernel's alignment rule: the widest of 16, 8 or 4 bytes that
+    divides Δ's base address and its row pitch (the output, from torch's
+    allocator, is aligned), else one element."""
+    e = d.element_size()
+    for w in (16, 8, 4):
+        if w > e and d.data_ptr() % w == 0 and d.shape[1] * e % w == 0:
+            return w
+    return e
+
+
+# besides the main path's n = 10 and D = 272,282: D below one vector (1, 3)
+# and odd (4,097, 272,283); n across the fused kernel's origin chunks (6
+# with 16-byte, 12 with 8-byte, 24 with 4- and 2-byte loads; 16 for a
+# chunk of 16) and beyond the 1,024 coefficients it stages at once; Δ's base
+# address off 16 bytes
+@pytest.mark.parametrize("layout", ["contiguous", "row_slice", "elem_offset"])
+@pytest.mark.parametrize("n", [1, 7, 10, 12, 13, 15, 16, 17, 24, 25, 64, 128, 300, 1030])
+@pytest.mark.parametrize("D", [1, 3, 100, 4097, 5000, 272_282, 272_283])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain_versions(dev, n, D, dtype):
-    A, c, d = _inputs(n, D, dtype, dev)
+def test_kernels_match_plain_versions(dev, n, D, dtype, layout):
+    A, c, d = _inputs(n, D, dtype, dev, layout)
     atol, rtol = TOL[dtype]
     before = dict(k.LAUNCHES)
     torch.testing.assert_close(k.relay_mix_2d(A, d).float(),
                                ref.relay_mix_2d(A.to(dtype), d).float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(k.fused_aggregate_2d(c, d).float(),
-                               ref.fused_aggregate_2d(c.to(dtype), d).float(),
+    u = k.fused_aggregate_2d(c, d)
+    torch.testing.assert_close(u.float(), ref.fused_aggregate_2d(c.to(dtype), d).float(),
                                atol=atol, rtol=rtol)
+    assert torch.equal(k.fused_aggregate_2d(c, d), u)  # no atomics: bitwise repeatable
     torch.cuda.synchronize()
     assert k.LAUNCHES["relay_mix_2d"] == before["relay_mix_2d"] + 1
-    assert k.LAUNCHES["fused_aggregate_2d"] == before["fused_aggregate_2d"] + 1
+    assert k.LAUNCHES["fused_aggregate_2d"] == before["fused_aggregate_2d"] + 2
+    plan = k.fused_aggregate_plan(d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan["vec_bytes"] == _vec_bytes(d)
+    assert 1 <= plan["grid"] <= sms * plan["blocks_per_sm"]
 
 
 def test_relay_mix_backward_on_card(dev):

@@ -118,6 +118,12 @@ def test_wrappers_refuse_bad_operands(fn, weights, delta, exc, match):
         fn(weights, delta)
 
 
+def test_fused_aggregate_plan_needs_a_cuda_tensor():
+    # the plan is the CUDA launcher's own choice; a CPU Δ launches nothing
+    with pytest.raises(ValueError, match="CUDA"):
+        k.fused_aggregate_plan(torch.ones(3, 8))
+
+
 def test_ops_backend_names():
     buf = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="relay_backend"):
