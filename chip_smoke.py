@@ -24,6 +24,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
             must launch exactly once a round on its backend, every loss must
             be finite, each kernel run must agree with its plain twin after
             all rounds, and colrel with colrel_fused after one round.
+5. engines  ColRel rounds of the same model, clients and data under the
+            JAX package's Fig. 6 channel at a short coherence (Markov link
+            fading on ring(10, 2), piecewise-constant p drift, rotating-cohort
+            churn; epochs of unequal length), A from ``AdaptiveOptAlpha``,
+            through ``run_rounds_loop``, ``EpochScanEngine`` and
+            ``PipelinedScanEngine`` (inline and threaded prefetch), for colrel
+            on ``hopper`` and colrel_fused on ``hopper_fused``.  Gates: each
+            engine bitwise equal to its loop (params, server state, per-round
+            loss/τ/delta_norm, generator state); the engines' scheduler
+            stats equal to each other and their solves to the loop's; each
+            kernel launched once a round on its backend and never on the
+            other; the pipelined engine's dispatches equal to its chunks;
+            finite losses and params; a churned round whose inactive τ reads
+            0.  Prints ms a round after the first chunk, the prefetch
+            overlap, the epochs and the OPT-α solves.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor the JAX package.
@@ -58,6 +73,10 @@ SWEEP_N = (1, 7, 10, 12, 13, 15, 16, 17, 24, 25, 64, 128, 300)
 SWEEP_D = (1, 3, 100, 4097, 5000, RESNET20_D, RESNET20_D + 1)
 ATOL, RTOL_F32, RTOL_BF16 = 1e-5, 1e-5, 2.0**-7
 PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
+
+# engines phase: the Fig. 6 channel at a coherence of a few rounds, so that
+# 20 rounds cross epochs of unequal length and chunk 4 leaves remainders
+ENGINE_ROUNDS, ENGINE_CHUNK = 20, 4
 
 # NVIDIA's H100 SXM data sheet (dense rates, 700 W): device memory
 # rate and the f32 rate outside the tensor cores
@@ -384,6 +403,175 @@ def phase_main() -> dict:
     return runs
 
 
+def _leaves(tree) -> list:
+    from repro_torch.utils import tree_flatten
+
+    return [] if tree is None else tree_flatten(tree)[0]
+
+
+def _bitwise_equal(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_engines() -> dict:
+    """The loop and the three engine runs on each kernel backend under a
+    churned, fading, drifting channel; see the module docstring for the
+    gates.  Returns each kernel's launches summed over its four runs."""
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.core import connectivity, topology
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import cifar_like
+    from repro_torch.fl.engine import EpochScanEngine, PipelinedScanEngine, run_rounds_loop
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.kernels import relay_mix as k
+    from repro_torch.models.resnet import init_resnet20, resnet20_loss
+
+    p0 = connectivity.paper_heterogeneous().p
+
+    def schedule():
+        # the JAX package's fig6 channel (bench/scenarios.py, seed 0 + 7)
+        # with adj_every 6, p_every 8 and cohorts held 6 rounds
+        link = channels.MarkovLinkProcess(topology.ring(N_CLIENTS, 2), p_up_to_down=0.3,
+                                          p_down_to_up=0.5, seed=7)
+        drift = channels.PiecewiseConstantDrift(p0, hold=1, low=0.1, high=0.9, seed=8)
+        member = channels.RotatingCohorts(N_CLIENTS, n_cohorts=5, hold=6)
+        return channels.ChurnSchedule(membership=member, link_process=link, p_process=drift,
+                                      adj_every=6, p_every=8)
+
+    segs = list(schedule().segments(ENGINE_ROUNDS))
+    lengths = [s.n_rounds for s in segs]
+    chunks = sum(math.ceil(n / ENGINE_CHUNK) for n in lengths)
+    print(f"engines: {len(segs)} epochs of lengths {lengths} in {ENGINE_ROUNDS} rounds, "
+          f"{chunks} chunks of at most {ENGINE_CHUNK}")
+    if len(segs) < 3 or all(n % ENGINE_CHUNK == 0 for n in lengths):
+        fail(f"engines: epochs {lengths} give no multi-epoch run with remainder chunks")
+    ds = cifar_like(N_TRAIN, seed=0)
+    parts = iid_partition(ds, N_CLIENTS, seed=0)
+
+    def loss_fn(params, batch):
+        return resnet20_loss(params, CONFIG, batch)
+
+    launches_total = {}
+    for strategy, backend, kernel in (("colrel", "hopper", "relay_mix_2d"),
+                                      ("colrel_fused", "hopper_fused", "fused_aggregate_2d")):
+        runs = {}
+        for engine in ("loop", "scan", "pipelined_inline", "pipelined_thread"):
+            # a fresh schedule, policy, loader, generator and model a run
+            sim = FLSimulator(loss_fn, n_clients=N_CLIENTS, strategy=strategy,
+                              local_steps=LOCAL_STEPS, relay_backend=backend,
+                              server_opt=ServerOpt(momentum=0.5))
+            # an event after every round (no sync): device timestamps for the
+            # first chunk's end
+            events, round_math = [], sim.round_math
+
+            def timed_round_math(*args, _f=round_math, _ev=events):
+                res = _f(*args)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                _ev.append(ev)
+                return res
+
+            sim.round_math = timed_round_math
+            policy = channels.AdaptiveOptAlpha(sweeps=40, warm_sweeps=12)
+            loader = FederatedLoader(ds, parts, seed=0)
+            params = init_resnet20(0, CONFIG)
+            state = sim.init_server_state(params)
+            gen = torch.Generator(device="cuda").manual_seed(42)
+            kw = dict(schedule=schedule(), rounds=ENGINE_ROUNDS, policy=policy, lr=LR,
+                      next_batch=lambda: loader.round_batch(LOCAL_STEPS, LOCAL_BATCH))
+            eng = None
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            k.reset_launches()
+            t0 = time.perf_counter()
+            start.record()
+            if engine == "loop":
+                res = run_rounds_loop(sim, gen, params, state, **kw)
+            elif engine == "scan":
+                res = EpochScanEngine(sim, chunk=ENGINE_CHUNK).run_schedule(gen, params, state, **kw)
+            else:
+                eng = PipelinedScanEngine(sim, chunk=ENGINE_CHUNK,
+                                          prefetch=engine.removeprefix("pipelined_"))
+                res = eng.run_schedule(gen, params, state, **kw)
+            torch.cuda.synchronize()
+            total_ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(k.LAUNCHES)
+            params, state, metrics, gen = res
+            first_ms = start.elapsed_time(events[ENGINE_CHUNK - 1])
+            tag = f"{strategy}/{backend} {engine}"
+            run = {"params": params, "state": state, "metrics": metrics,
+                   "gen": gen.get_state(), "stats": policy.stats, "launches": launches}
+            ms_a_round = (total_ms - first_ms) / (ENGINE_ROUNDS - ENGINE_CHUNK)
+            line = (f"engines {tag}: {ms_a_round:.3f} ms a round "
+                    f"after the first chunk ({total_ms:.3f} ms in all, first chunk "
+                    f"{first_ms:.3f} ms); OPT-α solves {policy.stats.solves}, cache hits "
+                    f"{policy.stats.cache_hits}; launches {launches}")
+            if eng is not None:
+                st = eng.prefetch_stats
+                # host staging a chunk after the pipeline fill, and the part
+                # of it the consumer waited for
+                steady = max(st.chunks - 1, 1)
+                staging_ms = (st.prep_s - st.first_prep_s) * 1e3 / steady
+                exposed_ms = (st.wait_s - st.first_wait_s) * 1e3 / steady
+                line += (f"; dispatches {eng.dispatches}; overlap_fraction "
+                         f"{st.overlap_fraction:.4f} (steady {st.steady_overlap_fraction:.4f}); "
+                         f"staging {staging_ms:.3f} ms a chunk after the first, "
+                         f"{exposed_ms:.3f} ms of it exposed")
+                if eng.dispatches != chunks:
+                    fail(f"{tag}: {eng.dispatches} dispatches for {chunks} chunks")
+            print(line)
+            want = {name: ENGINE_ROUNDS if name == kernel else 0 for name in launches}
+            if launches != want:
+                fail(f"{tag}: kernel launches {launches}, expected {want}")
+            losses = metrics["loss"]
+            if tuple(losses.shape) != (ENGINE_ROUNDS,) or not bool(torch.isfinite(losses).all()):
+                fail(f"{tag}: losses {losses.tolist()} not {ENGINE_ROUNDS} finite values")
+            if not all(bool(torch.isfinite(x).all()) for x in _leaves(params)):
+                fail(f"{tag}: non-finite parameters")
+            runs[engine] = run
+
+        loop = runs["loop"]
+        for engine, run in runs.items():
+            if engine == "loop":
+                continue
+            tag = f"{strategy}/{backend} {engine}"
+            for part in ("params", "state", "metrics"):
+                if not _bitwise_equal(run[part], loop[part]):
+                    fail(f"{tag}: {part} differ from the loop's")
+            if not torch.equal(run["gen"], loop["gen"]):
+                fail(f"{tag}: generator state differs from the loop's")
+            # the loop asks the policy every round, the engines once a
+            # segment: the same solves, and the loop's extra calls are hits
+            ls, es = loop["stats"], run["stats"]
+            if es != runs["scan"]["stats"]:
+                fail(f"{tag}: scheduler stats {es} != the epoch engine's {runs['scan']['stats']}")
+            if ((es.solves, es.warm_solves, es.sweeps_total, es.cache_misses)
+                    != (ls.solves, ls.warm_solves, ls.sweeps_total, ls.cache_misses)
+                    or ls.cache_hits - es.cache_hits != ENGINE_ROUNDS - len(segs)):
+                fail(f"{tag}: scheduler stats {es} do not match the loop's {ls}")
+        print(f"engines {strategy}/{backend}: scan, pipelined inline and pipelined thread "
+              f"bitwise equal to the loop (params, server state, loss/τ/delta_norm, "
+              f"generator state); scheduler stats {runs['scan']['stats']}")
+        # churn: a round with an inactive client reports its τ as 0
+        churned = [(s.round, s.active) for seg in segs for s in seg.states
+                   if s.active is not None and not s.active.all()]
+        if not churned:
+            fail("engines: no round had an inactive client")
+        tau = loop["metrics"]["tau"].cpu().numpy()
+        for r, active in churned:
+            if np.any(tau[r][~active] != 0):
+                fail(f"engines {strategy}: round {r} reports τ {tau[r]} for inactive clients")
+        launches_total[kernel] = sum(run["launches"][kernel] for run in runs.values())
+    print(f"engines: {len(churned)} of {ENGINE_ROUNDS} rounds churned; inactive τ reported 0")
+    return launches_total
+
+
 def main() -> int:
     phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -391,6 +579,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     runs = phase_main()
+    engine_launches = phase_engines()
     launches = {"relay_mix_2d": runs["colrel/hopper"]["launches"]["relay_mix_2d"],
                 "fused_aggregate_2d":
                     runs["colrel_fused/hopper_fused"]["launches"]["fused_aggregate_2d"]}
@@ -405,6 +594,12 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
             "launches": launches[name],
+            # each path's own count, from zero just before it: the main
+            # phase's 5 rounds, and the engines phase's four runs of 20
+            "launches_by_path": {
+                "main": launches[name],
+                "engines": engine_launches[name],
+            },
             "max_abs_err": kern["main_err"][e],
             "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL_F32},
                           "bf16": {"atol": ATOL, "rtol": RTOL_BF16}},

@@ -15,6 +15,7 @@ moved to the buffer's device as f32.  The sparse ``EdgeRelay`` operand and
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.utils import tree_map
@@ -24,6 +25,10 @@ def as_relay_operand(A, *, n: int, device) -> torch.Tensor | None:
     """A dense relay matrix as a float32 (n, n) tensor on ``device``."""
     if A is None:
         return None
+    if isinstance(A, np.ndarray):
+        # a copy: the relay policies hand out read-only matrices, which
+        # torch would wrap with a warning
+        A = np.array(A, dtype=np.float32)
     A = torch.as_tensor(A, dtype=torch.float32, device=device)
     if tuple(A.shape) != (n, n):
         raise ValueError(f"relay matrix shape {tuple(A.shape)} != ({n}, {n})")

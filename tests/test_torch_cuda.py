@@ -117,3 +117,100 @@ def test_kernel_backends_dispatch_to_kernels(dev):
 def test_wrapper_refuses_mixed_devices(dev):
     with pytest.raises(ValueError, match="weights on"):
         k.relay_mix_2d(torch.eye(3), torch.ones(3, 8, device=dev))
+
+
+# -- churn masks and the engines on the card ---------------------------------
+
+ACTIVE = (1, 0, 1, 1, 0, 1, 1, 1, 0, 1)
+
+
+@pytest.mark.parametrize("D", [1000, 272_282])
+def test_masked_relay_through_kernels_matches_plain(dev, D):
+    """A churn mask folds into A before dispatch: each kernel backend equals
+    plain torch, and an inactive slot adds exactly zero (poisoned rows of Δ
+    change nothing)."""
+    from repro_torch.core import aggregation
+
+    A, _, d = _inputs(10, D, torch.float32, dev)
+    active = torch.tensor(ACTIVE, dtype=torch.float32, device=dev)
+    tau = torch.tensor([1, 1, 0, 1, 1, 1, 0, 1, 1, 1], dtype=torch.float32, device=dev)
+    poisoned = d.clone()
+    poisoned[active == 0] = 1e30
+    want = ops.mix_flat(A, d, active=active, backend="einsum")
+    k.reset_launches()
+    got = ops.mix_flat(A, d, active=active, backend="hopper")
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert got[active == 0].eq(0).all()
+    for fused, backend in ((False, "hopper"), (True, "hopper_fused")):
+        inc = [aggregation.colrel_increment_flat(A, tau, buf, n=10, fused=fused, active=active,
+                                                 backend=b)
+               for buf, b in ((d, backend), (poisoned, backend), (d, "einsum"))]
+        assert torch.equal(inc[0], inc[1])
+        torch.testing.assert_close(inc[0], inc[2], atol=1e-5, rtol=1e-5)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES == {"relay_mix_2d": 3, "fused_aggregate_2d": 2}
+
+
+def _churn_schedule(n):
+    from repro_torch import channels
+    from repro_torch.core import topology
+
+    link = channels.MarkovLinkProcess(topology.ring(n, 2), p_up_to_down=0.4,
+                                      p_down_to_up=0.6, seed=3)
+    drift = channels.PiecewiseConstantDrift([0.2 + 0.7 * i / (n - 1) for i in range(n)],
+                                            hold=1, low=0.1, high=0.9, seed=4)
+    member = channels.RotatingCohorts(n, n_cohorts=3, hold=5)
+    return channels.ChurnSchedule(membership=member, link_process=link, p_process=drift,
+                                  adj_every=3, p_every=4)
+
+
+@pytest.mark.parametrize("engine", ["scan", "pipelined_inline", "pipelined_thread"])
+@pytest.mark.parametrize("strategy,backend", [("colrel", "hopper"),
+                                              ("colrel_fused", "hopper_fused")])
+def test_engines_bitwise_equal_to_loop_on_card(dev, strategy, backend, engine):
+    """Each engine against the per-round loop on a kernel backend under
+    churn, fading and drift: bitwise equal params, server state, metrics and
+    generator state, and one kernel launch a round."""
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.fl.engine import EpochScanEngine, PipelinedScanEngine, run_rounds_loop
+    from repro_torch.fl.simulator import FLSimulator
+
+    n, rounds, dim = 6, 17, 4097
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    def run(name):
+        rng = np.random.default_rng(42)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy=strategy, local_steps=2,
+                          relay_backend=backend, server_opt=ServerOpt(momentum=0.5))
+        params = {"x": torch.ones(dim, device=dev)}
+        kw = dict(schedule=_churn_schedule(n), rounds=rounds, lr=0.1,
+                  policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+                  next_batch=lambda: {"c": rng.standard_normal((n, 2, 4, dim))
+                                      .astype(np.float32)})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        k.reset_launches()
+        if name == "loop":
+            out = run_rounds_loop(sim, gen, params, sim.init_server_state(params), **kw)
+        elif name == "scan":
+            out = EpochScanEngine(sim, chunk=4).run_schedule(
+                gen, params, sim.init_server_state(params), **kw)
+        else:
+            out = PipelinedScanEngine(sim, chunk=4, prefetch=name.split("_")[1]).run_schedule(
+                gen, params, sim.init_server_state(params), **kw)
+        torch.cuda.synchronize()
+        return out, dict(k.LAUNCHES)
+
+    (lp, ls, lm, lg), _ = run("loop")
+    (ep, es, em, eg), launches = run(engine)
+    kernel = "relay_mix_2d" if backend == "hopper" else "fused_aggregate_2d"
+    assert launches == {name: rounds if name == kernel else 0 for name in launches}
+    assert torch.equal(ep["x"], lp["x"]) and torch.equal(es["x"], ls["x"])
+    for name in ("loss", "tau", "delta_norm"):
+        assert torch.equal(em[name], lm[name])
+    assert torch.equal(eg.get_state(), lg.get_state())
