@@ -39,6 +39,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
             finite losses and params; a churned round whose inactive τ reads
             0.  Prints ms a round after the first chunk, the prefetch
             overlap, the epochs and the OPT-α solves.
+6. bench    the bench harness (``repro_torch.bench.run_scenario``) on three
+            registered scenarios at their registered size: bench_smoke (the
+            MLP under Markov fading and p drift, 8-round epochs in chunks of
+            8), resnet20_cifar (ResNet-20/GN, D = 272,282, with the
+            ``hopper`` mix-kernel check) and relay_sweep_1e7 (the MLP at
+            D = 10,013,594, with the ``hopper_fused`` kernel check); the
+            reports go to ``build/bench_torch/``.  Gates: the engines
+            bitwise equal to the loop; each kernel check allclose with max
+            |Δ| ≤ 1e-5; model_params equal to the JAX package's recorded
+            sizes; each kernel launched once a round in the kernel check's
+            cold and warm passes and never by the einsum engines; finite
+            losses.  Prints rounds/s and compile_s per engine, the
+            pipelined engine's overlap, the kernel check and model_params.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor the JAX package.
@@ -77,6 +90,13 @@ PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
 # engines phase: the Fig. 6 channel at a coherence of a few rounds, so that
 # 20 rounds cross epochs of unequal length and chunk 4 leaves remainders
 ENGINE_ROUNDS, ENGINE_CHUNK = 20, 4
+
+# bench phase: the registered scenarios it runs, and the model sizes the
+# JAX package recorded for them (BENCH_resnet20_cifar.json,
+# BENCH_relay_sweep_1e7.json)
+BENCH_SCENARIOS = ("bench_smoke", "resnet20_cifar", "relay_sweep_1e7")
+BENCH_MODEL_PARAMS = {"resnet20_cifar": 272_282, "relay_sweep_1e7": 10_013_594}
+BENCH_KERNEL = {"hopper": "relay_mix_2d", "hopper_fused": "fused_aggregate_2d"}
 
 # NVIDIA's H100 SXM data sheet (dense rates, 700 W): device memory
 # rate and the f32 rate outside the tensor cores
@@ -187,6 +207,9 @@ def phase_kernels() -> dict:
              ("fused", "f32"): 0.0, ("fused", "bf16"): 0.0}
     main_err = {}
     cases = 0
+    # information, not a gate: f32 cases bitwise equal to the plain version
+    # (the kernels' order) and to the library product (cuBLAS's order)
+    same = {"plain": 0, "library": 0, "f32 cases": 0}
     for n in SWEEP_N:
         for D in SWEEP_D:
             A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
@@ -210,6 +233,11 @@ def phase_kernels() -> dict:
                     if not (torch.equal(k.relay_mix_2d(A, d), m)
                             and torch.equal(k.fused_aggregate_2d(c, d), u)):
                         fail(f"{name}: two calls of a kernel differ")
+                    if tag == "f32":
+                        same["f32 cases"] += 2
+                        same["plain"] += (torch.equal(m, ref.relay_mix_2d(A, d))
+                                          + torch.equal(u, ref.fused_aggregate_2d(c, d)))
+                        same["library"] += torch.equal(m, A @ d) + torch.equal(u, c @ d)
                     worst["mix", tag] = max(worst["mix", tag], e_mix)
                     worst["fused", tag] = max(worst["fused", tag], e_fused)
                     if (n, D) == MAIN_SHAPE and tag == "f32" and not layout:
@@ -218,21 +246,27 @@ def phase_kernels() -> dict:
     torch.cuda.synchronize()
     print(f"kernels: {cases} cases within tolerance, each call bitwise repeatable; max |Δ| "
           + ", ".join(f"{a} {b} {v:.3g}" for (a, b), v in worst.items()))
+    print(f"kernels: bitwise equal to the plain version in {same['plain']} and to the "
+          f"library product in {same['library']} of {same['f32 cases']} f32 cases")
 
-    # backward of the mix: (dA, dΔ) against autograd through the plain version
+    # backward of the mix: (dA, dΔ) against autograd through the library
+    # product.  Not through the plain version: its autograd reduces
+    # dA = g·Δᵀ over D in the order of its addcmul chain's backward, where
+    # the wrapper's dA is one f32 product, and two sums of 272,282 terms in
+    # different orders part by more than the tolerance
     for n, D in ((5, 700), MAIN_SHAPE):
         A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
         d = torch.randn(n, D, generator=gen, device=dev)
         cot = torch.randn(n, D, generator=gen, device=dev)
         grads = []
-        for fn in (k.relay_mix_2d, ref.relay_mix_2d):
+        for fn in (k.relay_mix_2d, torch.matmul):
             A_ = A.clone().requires_grad_(True)
             d_ = d.clone().requires_grad_(True)
             (fn(A_, d_) * cot).sum().backward()
             grads.append((A_.grad, d_.grad))
         check_close(f"relay_mix_2d dA n={n} D={D}", grads[0][0], grads[1][0], RTOL_F32)
         check_close(f"relay_mix_2d dΔ n={n} D={D}", grads[0][1], grads[1][1], RTOL_F32)
-    print("kernels: relay_mix_2d backward (dA, dΔ) matches autograd through the plain version")
+    print("kernels: relay_mix_2d backward (dA, dΔ) matches autograd through A @ Δ")
 
     # times: kernel, plain version, one PyTorch call; f32 as on the main path
     timing = {"relay_mix_2d": {}, "fused_aggregate_2d": {}}
@@ -572,6 +606,59 @@ def phase_engines() -> dict:
     return launches_total
 
 
+def phase_bench() -> dict:
+    """The bench harness on each of ``BENCH_SCENARIOS``; see the module
+    docstring for the gates.  Returns each kernel's launches over the
+    phase."""
+    from repro_torch.bench import harness, report, scenarios
+    from repro_torch.kernels import relay_mix as k
+
+    out_dir = os.path.join(ROOT, "build", "bench_torch")
+    totals = dict.fromkeys(k.LAUNCHES, 0)
+    for name in BENCH_SCENARIOS:
+        spec = scenarios.get_scenario(name)
+        t0 = time.perf_counter()
+        k.reset_launches()
+        result = harness.run_scenario(spec)
+        launches = dict(k.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        rep = report.make_report(spec, result)
+        path = report.write_report(rep, out_dir)
+        runs, check = result["runs"], result["kernel_check"]
+        if result["bitwise_match"] is not True:
+            fail(f"bench {name}: bitwise_match {result['bitwise_match']}")
+        kernel = BENCH_KERNEL.get(spec.check_backend)
+        none = dict.fromkeys(launches, 0)
+        want = {kn: 2 * spec.rounds if kn == kernel else 0 for kn in launches}
+        if launches != want:
+            fail(f"bench {name}: kernel launches {launches}, expected {want}")
+        for engine, run in runs.items():
+            if run.kernel_launches != (want if engine.startswith("scan_") else none):
+                fail(f"bench {name} {engine}: kernel launches {run.kernel_launches}")
+            if not all(math.isfinite(x) for x in run.losses):
+                fail(f"bench {name} {engine}: non-finite loss {run.losses}")
+        if kernel is not None and not (check and check["allclose"]
+                                       and check["max_abs_diff"] <= harness.KERNEL_CHECK_ATOL):
+            fail(f"bench {name}: kernel check {check}")
+        if name in BENCH_MODEL_PARAMS and result["model_params"] != BENCH_MODEL_PARAMS[name]:
+            fail(f"bench {name}: model_params {result['model_params']}, "
+                 f"expected {BENCH_MODEL_PARAMS[name]}")
+        engines = "; ".join(
+            f"{e} {r.rounds_per_sec:.3f} rounds/s compile_s {r.compile_s:.3f}"
+            + ("" if r.overlap_fraction is None else
+               f" overlap {r.overlap_fraction:.4f} (steady {r.steady_overlap_fraction:.4f})")
+            for e, r in runs.items())
+        kc = ("no kernel check" if check is None else
+              f"kernel_check {check['backend']} max_abs_diff {check['max_abs_diff']:.3g}")
+        print(f"bench {name} ({spec.rounds} rounds, n={spec.n_clients}, {seconds:.1f} s on "
+              f"{rep['device']['name']} at {rep['device']['power_limit_w']} W): {engines}; "
+              f"{kc}; model_params {result['model_params']}; launches {launches}; "
+              f"bitwise_match True; report {os.path.relpath(path, ROOT)}")
+        for kn in totals:
+            totals[kn] += launches[kn]
+    return totals
+
+
 def main() -> int:
     phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -580,6 +667,7 @@ def main() -> int:
     kern = phase_kernels()
     runs = phase_main()
     engine_launches = phase_engines()
+    bench_launches = phase_bench()
     launches = {"relay_mix_2d": runs["colrel/hopper"]["launches"]["relay_mix_2d"],
                 "fused_aggregate_2d":
                     runs["colrel_fused/hopper_fused"]["launches"]["fused_aggregate_2d"]}
@@ -595,10 +683,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
             "launches": launches[name],
             # each path's own count, from zero just before it: the main
-            # phase's 5 rounds, and the engines phase's four runs of 20
+            # phase's 5 rounds, the engines phase's four runs of 20, and the
+            # bench phase's kernel checks (cold and warm passes)
             "launches_by_path": {
                 "main": launches[name],
                 "engines": engine_launches[name],
+                "bench": bench_launches[name],
             },
             "max_abs_err": kern["main_err"][e],
             "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL_F32},

@@ -85,6 +85,19 @@ def test_kernels_match_plain_versions(dev, n, D, dtype, layout):
     assert 1 <= plan["grid"] <= sms * plan["blocks_per_sm"]
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 8, 10, 13, 17, 64])
+@pytest.mark.parametrize("D", [1000, 272_282])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_bitwise_equal_to_plain_versions(dev, n, D, dtype):
+    """The plain versions sum the origins in the kernels' order (ascending,
+    one fused multiply-add each), so on the card the two agree bit for bit;
+    a library product does not at every n (cuBLAS picks its order by
+    shape)."""
+    A, c, d = _inputs(n, D, dtype, dev)
+    assert torch.equal(k.relay_mix_2d(A, d), ref.relay_mix_2d(A.to(dtype), d))
+    assert torch.equal(k.fused_aggregate_2d(c, d), ref.fused_aggregate_2d(c.to(dtype), d))
+
+
 def test_relay_mix_backward_on_card(dev):
     A, _, d = _inputs(6, 3001, torch.float32, dev)
     cot = torch.randn_like(d)
@@ -214,3 +227,50 @@ def test_engines_bitwise_equal_to_loop_on_card(dev, strategy, backend, engine):
     for name in ("loss", "tau", "delta_norm"):
         assert torch.equal(em[name], lm[name])
     assert torch.equal(eg.get_state(), lg.get_state())
+
+
+# -- the bench harness on the card -------------------------------------------
+
+
+@pytest.fixture
+def deterministic(dev):
+    """f32 convolutions and cuDNN's deterministic algorithms, as the bench
+    CLI sets them: the bitwise gate needs every engine to run the same
+    convolution sums."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield dev
+    (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+
+
+@pytest.mark.parametrize("name", ["relay_sweep_smoke", "resnet20_cifar"])
+def test_bench_scenario_gates_and_launches_on_card(deterministic, name):
+    """``run_scenario`` on the card: the engines bitwise equal to the loop,
+    the kernel check within 1e-5 of einsum, and the check's kernel launched
+    once a round in its cold and warm passes (never by the einsum
+    engines).  resnet20_cifar is cut to 8 rounds in chunks of 4."""
+    import dataclasses
+
+    from repro_torch.bench import harness, report, scenarios
+
+    spec = scenarios.get_scenario(name)
+    if name == "resnet20_cifar":
+        spec = dataclasses.replace(spec, rounds=8, chunk=4)
+    k.reset_launches()
+    result = harness.run_scenario(spec)
+    kernel = {"hopper": "relay_mix_2d", "hopper_fused": "fused_aggregate_2d"}[spec.check_backend]
+    want = {kn: 2 * spec.rounds if kn == kernel else 0 for kn in k.LAUNCHES}
+    assert k.LAUNCHES == want
+    assert result["bitwise_match"] is True
+    assert result["kernel_check"]["allclose"] and result["kernel_check"]["max_abs_diff"] <= 1e-5
+    for engine, run in result["runs"].items():
+        assert run.kernel_launches == (want if engine.startswith("scan_") else
+                                       dict.fromkeys(want, 0))
+        assert all(math.isfinite(x) for x in run.losses)
+    rep = report.make_report(spec, result)
+    assert rep["backend"] == "cuda"
+    assert rep["device"]["name"] == torch.cuda.get_device_name(0)
