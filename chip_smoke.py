@@ -52,6 +52,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
             cold and warm passes and never by the einsum engines; finite
             losses.  Prints rounds/s and compile_s per engine, the
             pipelined engine's overlap, the kernel check and model_params.
+7. sparse   the bench harness on the cohort-sampling sweeps at their
+            registered sizes: sample_sweep_smoke (n = 256), _n1e3 and _n1e4
+            (n = 10⁴, about 28 MB of (n, D) f32 buffer): a sparse geometric
+            graph, fixed-k cohorts redrawn every round, SparseOptAlpha and
+            the ``segment`` backend, whose dense reduce is the fused kernel.
+            Gates: the engines bitwise equal to the loop; the einsum check
+            (smoke and n1e3) allclose with max |Δ| ≤ 1e-5; the fused kernel
+            launched 2 × rounds × engines times from 0 and never by the
+            check's pass; finite losses.  Then fused_coefficients and
+            segment_mix on the n = 10⁴ graph's EdgeRelay twice each, bitwise
+            equal and within 1e-5 of a float64 index_add_.  Prints rounds/s
+            per engine and the loop's round split between cohort sampling,
+            the sparse OPT-α solve and the round on the card.
+8. async    AsyncRoundEngine on ResNet-20/GN at full width (n = 10,
+            D = 272,282) under the Fig. 6 channel with churn, colrel_fused on
+            ``hopper_fused`` and on ``hopper``, 20 rounds a run.  Gates: at
+            ZeroDelays bitwise equal to run_rounds_loop (params, server
+            state, loss/τ/delta_norm, generator state); under Poisson(1.0)
+            delays (max_delay 8) at buffer_k 0 and 4 finite; the fused
+            kernel launched once a round in every run.  Prints the
+            arrivals, supersessions, selections and the largest staleness.
+            Then the bench harness on async_smoke: the async_check gate (the
+            async engine at delay 0 bitwise equal to the loop) and the
+            rounds to the target loss for every engine.  (async_ttac_500
+            runs on its own: ``python -m repro_torch.bench.run --scenario
+            async_ttac_500``.)
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor the JAX package.
@@ -76,6 +102,10 @@ N_TRAIN = 2560
 RESNET20_D = 272_282
 MAIN_SHAPE = (N_CLIENTS, RESNET20_D)
 LARGE_SHAPE = (8, 10_000_000)  # the JAX package's relay_sweep_1e7 size
+# the segment backend's dense reduce in the sample sweeps (the MLP's
+# D = 698): n past the fused kernel's 1,024 shared-memory coefficients
+# (kCoeffChunk), one past it, and the sweep's top
+SPARSE_SHAPES = ((1_000, 698), (1_025, 698), (10_000, 698))
 
 # kernel sweep and tolerances: f32 atol 1e-5 + rtol 1e-5 (sum order differs);
 # bf16 one bf16 ulp of the output (rtol 2^-7) + the same f32 atol.  Besides
@@ -97,6 +127,21 @@ ENGINE_ROUNDS, ENGINE_CHUNK = 20, 4
 BENCH_SCENARIOS = ("bench_smoke", "resnet20_cifar", "relay_sweep_1e7")
 BENCH_MODEL_PARAMS = {"resnet20_cifar": 272_282, "relay_sweep_1e7": 10_013_594}
 BENCH_KERNEL = {"hopper": "relay_mix_2d", "hopper_fused": "fused_aggregate_2d"}
+
+# sparse phase: the sample sweeps at their registered sizes, the segment
+# ops' and the einsum check's tolerance, and the rounds of the loop's
+# host/device split
+SPARSE_SCENARIOS = ("sample_sweep_smoke", "sample_sweep_n1e3", "sample_sweep_n1e4")
+SPARSE_CHECK_ATOL = 1e-5
+SPLIT_ROUNDS = 8
+
+# async phase: rounds of each AsyncRoundEngine run on ResNet-20/GN, and the
+# async bench scenario.  async_ttac_500 (500 rounds through four engine
+# passes, about 40 s on the card) runs on its own through
+# `python -m repro_torch.bench.run --scenario async_ttac_500`, which keeps
+# this script near three minutes
+ASYNC_ROUNDS = 20
+ASYNC_SCENARIOS = ("async_smoke",)
 
 # NVIDIA's H100 SXM data sheet (dense rates, 700 W): device memory
 # rate and the f32 rate outside the tensor cores
@@ -313,6 +358,42 @@ def phase_kernels() -> dict:
                   + json.dumps({key: v for key, v in t.items() if key != "shape"}))
         del ds, mix_args, fused_args
         torch.cuda.empty_cache()
+
+    # the fused kernel at the segment backend's shapes: bitwise equal to the
+    # plain version (the same ascending fmaf chain) and repeatable, then
+    # timed beside c @ Δ and the bound
+    timing["fused_aggregate_2d"]["sparse"] = []
+    for n, D in SPARSE_SHAPES:
+        c = torch.randn(n, generator=gen, device=dev) / math.sqrt(n)
+        d32 = torch.randn(n, D, generator=gen, device=dev)
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            d = d32.to(dt)
+            u = k.fused_aggregate_2d(c, d)
+            if not torch.equal(u, ref.fused_aggregate_2d(c.to(dt), d)):
+                fail(f"fused_aggregate_2d n={n} D={D} {tag}: not bitwise equal to the plain version")
+            if not torch.equal(k.fused_aggregate_2d(c, d), u):
+                fail(f"fused_aggregate_2d n={n} D={D} {tag}: two calls differ")
+        copies = max(1, math.ceil(2 * L2_BYTES / (4 * n * D)))
+        ds = [torch.randn(n, D, generator=gen, device=dev) for _ in range(copies)]
+        args = [(c, d) for d in ds]
+        b_ms, b_by = bound_ms(4 * (n + n * D + D), 2 * n * D)
+        t = {
+            "shape": [n, D],
+            "ms": device_ms(k.fused_aggregate_2d, args, 200),
+            # n launches a call: a few calls a graph
+            "plain_ms": device_ms(lambda c_, d_: ref.fused_aggregate_2d(c_, d_), args,
+                                  max(1, 4000 // n)),
+            "library_ms": device_ms(lambda c_, d_: c_ @ d_, args, 200),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "plan": k.fused_aggregate_plan(ds[0]),
+        }
+        timing["fused_aggregate_2d"]["sparse"].append(t)
+        print(f"time fused_aggregate_2d sparse (n={n}, D={D}, {copies} Δ copies; f32 and "
+              f"bf16 bitwise equal to the plain version): "
+              + json.dumps({key: v for key, v in t.items() if key != "shape"}))
+        del ds, args
+    torch.cuda.empty_cache()
     return {"worst": worst, "main_err": main_err, "timing": timing}
 
 
@@ -448,6 +529,22 @@ def _bitwise_equal(a, b) -> bool:
     return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
 
 
+def fig6_schedule():
+    """The JAX package's fig6 channel (bench/scenarios.py, seed 0 + 7) with
+    adj_every 6, p_every 8 and cohorts held 6 rounds: Markov link fading on
+    ring(10, 2), piecewise-constant p drift, rotating-cohort churn."""
+    from repro_torch import channels
+    from repro_torch.core import connectivity, topology
+
+    p0 = connectivity.paper_heterogeneous().p
+    link = channels.MarkovLinkProcess(topology.ring(N_CLIENTS, 2), p_up_to_down=0.3,
+                                      p_down_to_up=0.5, seed=7)
+    drift = channels.PiecewiseConstantDrift(p0, hold=1, low=0.1, high=0.9, seed=8)
+    member = channels.RotatingCohorts(N_CLIENTS, n_cohorts=5, hold=6)
+    return channels.ChurnSchedule(membership=member, link_process=link, p_process=drift,
+                                  adj_every=6, p_every=8)
+
+
 def phase_engines() -> dict:
     """The loop and the three engine runs on each kernel backend under a
     churned, fading, drifting channel; see the module docstring for the
@@ -456,7 +553,6 @@ def phase_engines() -> dict:
 
     from repro_torch import channels
     from repro_torch.configs.resnet20_cifar import CONFIG
-    from repro_torch.core import connectivity, topology
     from repro_torch.core.aggregation import ServerOpt
     from repro_torch.data.loader import FederatedLoader
     from repro_torch.data.partition import iid_partition
@@ -466,18 +562,7 @@ def phase_engines() -> dict:
     from repro_torch.kernels import relay_mix as k
     from repro_torch.models.resnet import init_resnet20, resnet20_loss
 
-    p0 = connectivity.paper_heterogeneous().p
-
-    def schedule():
-        # the JAX package's fig6 channel (bench/scenarios.py, seed 0 + 7)
-        # with adj_every 6, p_every 8 and cohorts held 6 rounds
-        link = channels.MarkovLinkProcess(topology.ring(N_CLIENTS, 2), p_up_to_down=0.3,
-                                          p_down_to_up=0.5, seed=7)
-        drift = channels.PiecewiseConstantDrift(p0, hold=1, low=0.1, high=0.9, seed=8)
-        member = channels.RotatingCohorts(N_CLIENTS, n_cohorts=5, hold=6)
-        return channels.ChurnSchedule(membership=member, link_process=link, p_process=drift,
-                                      adj_every=6, p_every=8)
-
+    schedule = fig6_schedule
     segs = list(schedule().segments(ENGINE_ROUNDS))
     lengths = [s.n_rounds for s in segs]
     chunks = sum(math.ceil(n / ENGINE_CHUNK) for n in lengths)
@@ -659,6 +744,255 @@ def phase_bench() -> dict:
     return totals
 
 
+def _split_rounds(bundle, rounds: int) -> dict:
+    """The loop's round split between host and device, over ``rounds``
+    rounds after one warm-up: host seconds drawing the cohort (the
+    schedule's step) and solving sparse OPT-α (the policy), and the seconds
+    from the round's launch until ``torch.cuda.synchronize()`` returns
+    (staging the batch and the relay operand, the launches and the device
+    work)."""
+    spec = bundle.spec
+    sim = bundle.make_sim()
+    schedule, policy, loader = bundle.make_schedule(), bundle.make_policy(), bundle.make_loader()
+    params = bundle.init_fn(spec.seed)
+    state = sim.init_server_state(params)
+    gen = torch.Generator(device=sim.device).manual_seed(spec.seed + 1)
+    it = schedule.rounds(rounds + 1)
+    split = {"sample_s": 0.0, "solve_s": 0.0, "round_s": 0.0}
+    for r in range(rounds + 1):
+        t0 = time.perf_counter()
+        st = next(it)
+        t1 = time.perf_counter()
+        A = policy.relay_matrix(st)
+        t2 = time.perf_counter()
+        batch = loader.round_batch(spec.local_steps, spec.local_batch)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        params, state, m = sim.run_round(gen, params, state, batch, spec.lr, A=A, p=st.p,
+                                         active=st.active)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if r:  # the first round warms the caches and is left out
+            split["sample_s"] += t1 - t0
+            split["solve_s"] += t2 - t1
+            split["round_s"] += t4 - t3
+    return {key: v / rounds * 1e3 for key, v in split.items()}
+
+
+def phase_sparse() -> dict:
+    """The sample sweeps through the bench harness (the segment backend,
+    sparse OPT-α and cohort sampling at their registered sizes), the segment
+    ops' determinism at n = 10⁴, and the loop's host/device split; see the
+    module docstring for the gates.  Returns each kernel's launches over
+    the phase."""
+    from repro_torch.bench import harness, report, scenarios
+    from repro_torch.core import relay as relay_lib
+    from repro_torch.kernels import relay_mix as k
+
+    out_dir = os.path.join(ROOT, "build", "bench_torch")
+    totals = dict.fromkeys(k.LAUNCHES, 0)
+    for name in SPARSE_SCENARIOS:
+        spec = scenarios.get_scenario(name)
+        t0 = time.perf_counter()
+        k.reset_launches()
+        result = harness.run_scenario(spec)
+        launches = dict(k.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        rep = report.make_report(spec, result)
+        path = report.write_report(rep, out_dir)
+        runs, check = result["runs"], result["kernel_check"]
+        if result["bitwise_match"] is not True:
+            fail(f"sparse {name}: bitwise_match {result['bitwise_match']}")
+        # segment's reduce is the fused kernel: once a round in the cold and
+        # warm pass of every engine; the einsum check's pass launches none
+        per_run = {"relay_mix_2d": 0, "fused_aggregate_2d": 2 * spec.rounds}
+        want = {"relay_mix_2d": 0,
+                "fused_aggregate_2d": 2 * spec.rounds * len(spec.engines)}
+        if launches != want:
+            fail(f"sparse {name}: kernel launches {launches}, expected {want}")
+        for engine, run in runs.items():
+            expect = dict.fromkeys(per_run, 0) if engine.startswith("scan_") else per_run
+            if run.kernel_launches != expect:
+                fail(f"sparse {name} {engine}: kernel launches {run.kernel_launches}")
+            if not all(math.isfinite(x) for x in run.losses):
+                fail(f"sparse {name} {engine}: non-finite loss {run.losses}")
+        if spec.check_backend != "none" and not (
+                check and check["allclose"] and check["max_abs_diff"] <= SPARSE_CHECK_ATOL):
+            fail(f"sparse {name}: einsum check {check}")
+        bundle = scenarios.build(spec)
+        split = _split_rounds(bundle, SPLIT_ROUNDS)
+        engines = "; ".join(f"{e} {r.rounds_per_sec:.3f} rounds/s compile_s {r.compile_s:.3f}"
+                            for e, r in runs.items())
+        kc = ("no einsum check" if check is None else
+              f"einsum check max_abs_diff {check['max_abs_diff']:.3g}")
+        print(f"sparse {name} ({spec.rounds} rounds, n={spec.n_clients}, k={spec.sample_k}, "
+              f"{seconds:.1f} s on {rep['device']['name']} at "
+              f"{rep['device']['power_limit_w']} W): {engines}; {kc}; launches {launches}; "
+              f"bitwise_match True; report {os.path.relpath(path, ROOT)}")
+        print(f"sparse {name} loop round split over {SPLIT_ROUNDS} warm rounds (ms a round): "
+              f"cohort sampling {split['sample_s']:.3f}, sparse OPT-α solve "
+              f"{split['solve_s']:.3f}, round launch to synchronize {split['round_s']:.3f}")
+        for kn in totals:
+            totals[kn] += launches[kn]
+
+    # the segment ops on the n = 10⁴ graph's first EdgeRelay: two calls give
+    # the same bits, and both agree with a float64 index_add_ reference
+    bundle = scenarios.build(scenarios.get_scenario(SPARSE_SCENARIOS[-1]))
+    dev = bundle.device
+    st = next(bundle.make_schedule().rounds(1))
+    er = relay_lib.as_relay_operand(bundle.make_policy().relay_matrix(st),
+                                    n=st.p.shape[0], backend="segment", device=dev)
+    n, E = st.p.shape[0], er.rows.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tau = torch.bernoulli(torch.full((n,), 0.5, device=dev), generator=gen)
+    buf = torch.randn(n, 698, generator=gen, device=dev)
+    rows, cols = er.rows.long(), er.cols.long()
+    c64 = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, cols, tau.double()[rows] * er.vals.double())
+    mix64 = torch.zeros(n, 698, dtype=torch.float64, device=dev).index_add_(
+        0, rows, er.vals.double()[:, None] * buf.double()[cols])
+    for label, fn, want64 in (("fused_coefficients", lambda: relay_lib.fused_coefficients(er, tau),
+                               c64),
+                              ("segment_mix", lambda: relay_lib.segment_mix(er, buf), mix64)):
+        a, b = fn(), fn()
+        if not torch.equal(a, b):
+            fail(f"sparse {label} at n={n}: two calls differ")
+        err = (a.double() - want64).abs().max().item()
+        if err > SPARSE_CHECK_ATOL:
+            fail(f"sparse {label} at n={n}: max |Δ| {err:.3g} against float64 index_add_")
+        print(f"sparse {label} at n={n}, E={E}, W={er.layout.by_row.shape[1]} (rows) / "
+              f"{er.layout.by_col.shape[1]} (cols): two calls bitwise equal; max |Δ| "
+              f"{err:.3g} against float64 index_add_")
+    return totals
+
+
+def phase_async() -> dict:
+    """``AsyncRoundEngine`` on ResNet-20/GN at full width under the Fig. 6
+    channel with churn, then the async bench scenarios; see the module
+    docstring for the gates.  Returns each kernel's launches over the
+    phase."""
+    from repro_torch.bench import harness, report, scenarios
+    from repro_torch.channels import PoissonDelays, ZeroDelays
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import cifar_like
+    from repro_torch.fl.async_engine import AsyncRoundEngine
+    from repro_torch.fl.engine import run_rounds_loop
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.kernels import relay_mix as k
+    from repro_torch.models.resnet import init_resnet20, resnet20_loss
+    from repro_torch.obs import Tracer
+    from repro_torch import channels
+
+    ds = cifar_like(N_TRAIN, seed=0)
+    parts = iid_partition(ds, N_CLIENTS, seed=0)
+
+    def loss_fn(params, batch):
+        return resnet20_loss(params, CONFIG, batch)
+
+    def run(backend, engine, delays=None, buffer_k=0):
+        sim = FLSimulator(loss_fn, n_clients=N_CLIENTS, strategy="colrel_fused",
+                          local_steps=LOCAL_STEPS, relay_backend=backend,
+                          server_opt=ServerOpt(momentum=0.5))
+        loader = FederatedLoader(ds, parts, seed=0)
+        params = init_resnet20(0, CONFIG)
+        state = sim.init_server_state(params)
+        gen = torch.Generator(device=sim.device).manual_seed(42)
+        policy = channels.AdaptiveOptAlpha(sweeps=40, warm_sweeps=12)
+        kw = dict(schedule=fig6_schedule(), rounds=ASYNC_ROUNDS, policy=policy, lr=LR,
+                  next_batch=lambda: loader.round_batch(LOCAL_STEPS, LOCAL_BATCH))
+        tracer = Tracer()
+        torch.cuda.synchronize()
+        k.reset_launches()
+        t0 = time.perf_counter()
+        if engine == "loop":
+            res = run_rounds_loop(sim, gen, params, state, **kw)
+        else:
+            eng = AsyncRoundEngine(sim, delays=delays, staleness_decay=0.8,
+                                   buffer_k=buffer_k, tracer=tracer)
+            res = eng.run_schedule(gen, params, state, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / ASYNC_ROUNDS
+        launches = dict(k.LAUNCHES)
+        params, state, metrics, gen = res
+        tag = f"colrel_fused/{backend} {engine}"
+        want = {"relay_mix_2d": 0, "fused_aggregate_2d": ASYNC_ROUNDS}
+        if launches != want:
+            fail(f"async {tag}: kernel launches {launches}, expected {want}")
+        losses = metrics["loss"]
+        if not (bool(torch.isfinite(losses).all())
+                and all(bool(torch.isfinite(x).all()) for x in _leaves(params))):
+            fail(f"async {tag}: non-finite losses or params")
+        buffers = [e.attrs for e in tracer.instants if e.name == "async.buffer"]
+        counters = dict(tracer.counters)
+        return {"params": params, "state": state, "metrics": metrics, "gen": gen.get_state(),
+                "ms": ms, "launches": launches, "counters": counters,
+                "max_staleness": max((b["max_staleness"] for b in buffers), default=0),
+                "mean_selected": (sum(b["selected"] for b in buffers) / len(buffers)
+                                  if buffers else None)}
+
+    totals = dict.fromkeys(k.LAUNCHES, 0)
+    for backend in ("hopper_fused", "hopper"):
+        loop = run(backend, "loop")
+        zero = run(backend, "async", ZeroDelays(N_CLIENTS))
+        for part in ("params", "state", "metrics"):
+            if not _bitwise_equal(zero[part], loop[part]):
+                fail(f"async colrel_fused/{backend}: delay 0 {part} differ from the loop's")
+        if not torch.equal(zero["gen"], loop["gen"]):
+            fail(f"async colrel_fused/{backend}: delay 0 generator state differs from the loop's")
+        print(f"async colrel_fused/{backend}: delay 0 bitwise equal to the loop over "
+              f"{ASYNC_ROUNDS} rounds (params, server state, loss/τ/delta_norm, generator "
+              f"state); loop {loop['ms']:.3f} ms a round, async {zero['ms']:.3f}; launches "
+              f"{zero['launches']}")
+        for kn in totals:
+            totals[kn] += loop["launches"][kn] + zero["launches"][kn]
+        for buffer_k in (0, 4):
+            delayed = run(backend, "async",
+                          PoissonDelays(N_CLIENTS, rate=1.0, max_delay=8, seed=11),
+                          buffer_k=buffer_k)
+            c = delayed["counters"]
+            print(f"async colrel_fused/{backend} Poisson(1.0) max_delay 8 buffer_k {buffer_k}: "
+                  f"{delayed['ms']:.3f} ms a round; final loss "
+                  f"{float(delayed['metrics']['loss'][-1]):.4f}; arrivals "
+                  f"{c.get('async.arrivals', 0)}, superseded {c.get('async.superseded', 0)}, "
+                  f"selected {c.get('async.selected', 0)} ({delayed['mean_selected']:.2f} a "
+                  f"round), max staleness {delayed['max_staleness']}; launches "
+                  f"{delayed['launches']}")
+            for kn in totals:
+                totals[kn] += delayed["launches"][kn]
+
+    out_dir = os.path.join(ROOT, "build", "bench_torch")
+    for name in ASYNC_SCENARIOS:
+        spec = scenarios.get_scenario(name)
+        t0 = time.perf_counter()
+        k.reset_launches()
+        result = harness.run_scenario(spec)
+        launches = dict(k.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        rep = report.make_report(spec, result)
+        path = report.write_report(rep, out_dir)
+        check, runs = result["async_check"], result["runs"]
+        if not (check and check["bitwise"] is True):
+            fail(f"async {name}: async_check {check}")
+        want = dict.fromkeys(launches, 0)  # the einsum backend launches nothing
+        if launches != want:
+            fail(f"async {name}: kernel launches {launches}, expected {want}")
+        for engine, run_ in runs.items():
+            if not all(math.isfinite(x) for x in run_.losses):
+                fail(f"async {name} {engine}: non-finite loss {run_.losses}")
+        engines = "; ".join(f"{e} {r.rounds_per_sec:.3f} rounds/s" for e, r in runs.items())
+        ttac = "; ".join(
+            f"{e} {t['rounds_to_target'] if t['reached'] else 'not reached'}"
+            for e, t in sorted(result["ttac"]["engines"].items()))
+        print(f"async {name} ({spec.rounds} rounds, {seconds:.1f} s on {rep['device']['name']} "
+              f"at {rep['device']['power_limit_w']} W): {engines}; async_check bitwise True; "
+              f"rounds to loss {result['ttac']['target_loss']}: {ttac}; report "
+              f"{os.path.relpath(path, ROOT)}")
+    return totals
+
+
 def main() -> int:
     phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -668,6 +1002,11 @@ def main() -> int:
     runs = phase_main()
     engine_launches = phase_engines()
     bench_launches = phase_bench()
+    t_sparse = time.perf_counter()
+    sparse_launches = phase_sparse()
+    t_async = time.perf_counter()
+    async_launches = phase_async()
+    print(f"phases: sparse {t_async - t_sparse:.1f} s, async {time.perf_counter() - t_async:.1f} s")
     launches = {"relay_mix_2d": runs["colrel/hopper"]["launches"]["relay_mix_2d"],
                 "fused_aggregate_2d":
                     runs["colrel_fused/hopper_fused"]["launches"]["fused_aggregate_2d"]}
@@ -683,12 +1022,16 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
             "launches": launches[name],
             # each path's own count, from zero just before it: the main
-            # phase's 5 rounds, the engines phase's four runs of 20, and the
-            # bench phase's kernel checks (cold and warm passes)
+            # phase's 5 rounds, the engines phase's four runs of 20, the
+            # bench phase's kernel checks (cold and warm passes), the sample
+            # sweeps' engines (cold and warm, the segment reduce) and the
+            # async engine's and its loops' rounds on the kernel backends
             "launches_by_path": {
                 "main": launches[name],
                 "engines": engine_launches[name],
                 "bench": bench_launches[name],
+                "sparse": sparse_launches[name],
+                "async": async_launches[name],
             },
             "max_abs_err": kern["main_err"][e],
             "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL_F32},
@@ -703,6 +1046,8 @@ def main() -> int:
             **({"plan": main_t["plan"]} if "plan" in main_t else {}),
             "large": {key: large_t[key] for key in
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **({"sparse": kern["timing"][name]["sparse"]}
+               if "sparse" in kern["timing"][name] else {}),
         })
     print(f"total {time.perf_counter() - t0:.1f} s after the device check")
     print(json.dumps({"kernels": kernels}))

@@ -42,8 +42,12 @@ parameters match bit for bit.  On the card that needs deterministic
 kernels: the relay kernels are, and cuDNN must be set so
 (``torch.backends.cudnn.deterministic = True``; the CLI sets it).
 
-Not here yet: the mesh and sharded steps (ROADMAP step 14) and the async
-engine with its delay-0 gate (step 12).
+The ``async`` engine (:class:`repro_torch.fl.async_engine.AsyncRoundEngine`)
+replays the scenario's delay stream from a fresh process each pass; a
+delayed run is held to the **async parity gate** instead of the bitwise one
+(see :func:`run_scenario`).
+
+Not here yet: the mesh and sharded steps (ROADMAP step 14).
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.bench.scenarios import ScenarioBundle, ScenarioSpec, build, get_scenario
+from repro_torch.fl.async_engine import AsyncRoundEngine
 from repro_torch.fl.engine import EpochScanEngine, PipelinedScanEngine, run_rounds_loop
 from repro_torch.kernels import relay_mix
 from repro_torch.obs import NULL_TRACER, Tracer, phase_attribution, write_chrome_trace, write_jsonl
@@ -134,7 +139,7 @@ def _run_once(bundle: ScenarioBundle, engine, batches: list, tracer=None):
     if tracer is not None:
         schedule.tracer = tracer
     params = bundle.init_fn(spec.seed)
-    fused = isinstance(engine, (EpochScanEngine, PipelinedScanEngine))
+    fused = isinstance(engine, (EpochScanEngine, PipelinedScanEngine, AsyncRoundEngine))
     sim = engine.sim if fused else engine
     server_state = sim.init_server_state(params)
     generator = torch.Generator(device=sim.device).manual_seed(spec.seed + 1)
@@ -210,13 +215,20 @@ def run_engine(bundle: ScenarioBundle, name: str, batches: list, trace_dir=None)
             -(-seg.n_rounds // spec.chunk)
             for seg in bundle.make_schedule().segments(spec.rounds)
         )
+    elif name == "async":
+        # each engine run replays the same delay stream (fresh process,
+        # same seed); reset=True inside run_schedule makes cold and warm
+        # passes identical.  Like the loop, one aggregation a round.
+        engine = AsyncRoundEngine(
+            sim,
+            delays=bundle.make_delays(),
+            staleness_decay=spec.staleness_decay,
+            buffer_k=spec.buffer_k,
+        )
+        dispatches = spec.rounds
     elif name == "loop":
         engine = sim
         dispatches = spec.rounds
-    elif name == "async":
-        raise NotImplementedError(
-            "the async engine (ROADMAP step 12) is not ported to repro_torch yet"
-        )
     else:
         raise ValueError(f"unknown engine: {name!r}")
     before = dict(relay_mix.LAUNCHES)
@@ -283,8 +295,17 @@ def run_scenario(
     ``{"runs": {name: EngineRun}, "speedup": float | None,
     "speedups": {name: float}, "bitwise_match": bool | None,
     "model_params": int, "kernel_check": dict | None,
-    "shard_check": None, "async_check": None, "ttac": dict | None,
+    "shard_check": None, "async_check": dict | None, "ttac": dict | None,
     "device": torch.device}``.
+
+    The ``async`` engine (``spec.engines`` includes it) joins the bitwise
+    gate only at ``spec.delay == "none"`` — a delayed run diverges from the
+    loop *by design*.  A delayed scenario instead gets the **async parity
+    gate** (``async_check``): the async engine re-runs with the delay (and
+    the freshest-k cap) stripped and its final parameters must be
+    bitwise-identical to the loop's (the staleness-weighting unbiasedness
+    regression; the re-run is recorded in ``runs`` as ``async_delay0``).  A
+    mismatch raises.
 
     ``speedups[name]`` is that engine's rounds/sec over the loop's (absent
     unless the loop ran); ``speedup`` is the scan/loop headline.
@@ -351,6 +372,28 @@ def run_scenario(
             "max_abs_diff": max_abs_diff,
             "rounds_per_sec": krun.rounds_per_sec,
         }
+    async_check = None
+    if "async" in finals and spec.delay != "none" and "loop" in finals:
+        # the mandatory async parity gate: strip the delay (and the buffer
+        # cap — freshest-k at k < n drops clients even when all arrive
+        # fresh) and the engine must reproduce the loop bit for bit (same
+        # batches, same τ stream) — proof the staleness weighting degrades
+        # to OPT-α exactly in the synchronous limit
+        dspec = dataclasses.replace(spec, delay="none", buffer_k=0)
+        arun, afinal = run_engine(build(dspec, device=bundle.device), "async", batches)
+        if not _bitwise_equal(finals["loop"], afinal):
+            raise AssertionError(
+                f"{spec.name}: the async engine at delay=0 diverged bitwise "
+                "from the per-round loop — the staleness weighting broke "
+                "the synchronous-limit contract"
+            )
+        runs["async_delay0"] = dataclasses.replace(arun, engine="async_delay0")
+        async_check = {
+            "reference": "loop",
+            "bitwise": True,
+            "recorded_delay": spec.delay,
+            "rounds_per_sec": arun.rounds_per_sec,
+        }
     ttac = None
     if spec.ttac_target_loss > 0:
         ttac = {"target_loss": spec.ttac_target_loss, "engines": {}}
@@ -378,6 +421,10 @@ def run_scenario(
         for name, final in finals.items():
             if name == "loop":
                 continue
+            if name == "async" and spec.delay != "none":
+                # a delayed async run diverges from the loop by design; its
+                # gate is the delay-0 re-run above (async_check)
+                continue
             bitwise = _bitwise_equal(finals["loop"], final)
             if not bitwise:
                 raise AssertionError(
@@ -392,7 +439,7 @@ def run_scenario(
         "model_params": model_params,
         "kernel_check": kernel_check,
         "shard_check": None,
-        "async_check": None,
+        "async_check": async_check,
         "ttac": ttac,
         "device": bundle.device,
     }

@@ -74,6 +74,13 @@ def format_summary(rep: dict) -> str:
             f"≤ atol {check['atol']:g}/rtol {check['rtol']:g}), "
             f"{check['rounds_per_sec']:.1f} rounds/s on the kernel backend"
         )
+    acheck = rep.get("async_check")
+    if acheck:
+        lines.append(
+            f"  async check: delay 0 bitwise equal to the {acheck['reference']} "
+            f"(recorded delay {acheck['recorded_delay']}), "
+            f"{acheck['rounds_per_sec']:.1f} rounds/s at delay 0"
+        )
     ttac = rep.get("ttac")
     if ttac:
         lines.append(f"  time-to-accuracy (loss ≤ {ttac['target_loss']:g}):")
@@ -115,7 +122,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--engines",
         default="",
-        help="comma-separated engines to run (loop, scan, pipelined); "
+        help="comma-separated engines to run (loop, scan, pipelined, async); "
         "default: the scenario's own engine list",
     )
     ap.add_argument(

@@ -11,9 +11,9 @@ The fields, their names and defaults are the JAX package's, so
 ``dataclasses.asdict`` gives the same ``spec`` block.  Backend values are
 renamed by :data:`BACKEND_FROM_JAX` (``pallas`` → ``hopper``, ``pallas_fused``
 → ``hopper_fused``).  A value whose path the port does not have yet (the
-mesh and sharded steps, async rounds, the sparse path) raises
-``NotImplementedError`` at construction, naming its ``ROADMAP.md`` step; the
-scenarios that need one are listed in :data:`NOT_YET_PORTED`.
+mesh and sharded steps) raises ``NotImplementedError`` at construction,
+naming its ``ROADMAP.md`` step; the scenarios that need one are listed in
+:data:`NOT_YET_PORTED`.
 
 The registered scenarios:
 
@@ -38,11 +38,23 @@ The registered scenarios:
                   the relay/aggregate hot spot swept over model size
                   D = 10⁴ … 10⁷; reference engines + the mandatory
                   ``hopper_fused`` kernel check
+  sample_sweep_n1e3 / _n1e4 / _smoke
+                  the n ≫ 10³ client-scale regime: sparse geometric graph,
+                  per-round fixed-k cohorts (CohortSampler), the
+                  neighborhood-blocked sparse OPT-α (SparseOptAlpha) and the
+                  ``segment`` backend; n1e3 and smoke carry the einsum check
+  async_ttac_500  time-to-accuracy under Poisson arrival delays: the
+                  staleness-weighted async engine vs the loop and pipelined
+                  engines on the fig5 channel, with the mandatory delay-0
+                  parity gate (async == loop bitwise)
+  async_smoke     CI-sized async point: geometric delays, buffer_k
+                  selection and the delay-0 parity gate in seconds
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import channels
@@ -52,6 +64,7 @@ from repro_torch.core.aggregation import ServerOpt
 from repro_torch.data.loader import FederatedLoader
 from repro_torch.data.partition import iid_partition
 from repro_torch.data.synthetic import cifar_like, gaussian_classification
+from repro_torch.fl.async_engine import SUPPORTED_STRATEGIES as _ASYNC_STRATEGIES
 from repro_torch.fl.simulator import FLSimulator
 from repro_torch.kernels.ops import RELAY_BACKENDS
 from repro_torch.models.resnet import init_resnet20, resnet20_loss
@@ -61,8 +74,6 @@ from repro_torch.utils import resolve_device
 # the JAX package's relay-backend names → the port's
 BACKEND_FROM_JAX = {"einsum": "einsum", "pallas": "hopper", "pallas_fused": "hopper_fused"}
 
-_SPARSE = "the sparse path (ROADMAP step 11)"
-_ASYNC = "async rounds (ROADMAP step 12)"
 _DISTRIBUTED = "the distributed engines (ROADMAP step 14)"
 
 
@@ -87,7 +98,7 @@ class ScenarioSpec:
     local_steps: int = 2
     local_batch: int = 8
     strategy: str = "colrel_fused"
-    policy: str = "adaptive"  # adaptive | stale | none (sparse: step 11)
+    policy: str = "adaptive"  # adaptive | sparse | stale | none
     opt_method: str = "exact"  # OPT-α column solver (exact | bisect)
     opt_sweeps: int = 40
     warm_sweeps: int = 12
@@ -102,7 +113,8 @@ class ScenarioSpec:
     n_classes: int = 10
     n_train: int = 1024
     # relay backend for the (n, D) aggregation hot spot (repro_torch.kernels):
-    # einsum = plain torch, hopper / hopper_fused = the CUDA kernels.
+    # einsum = plain torch, hopper / hopper_fused = the CUDA kernels,
+    # segment = the sparse EdgeRelay path (policy="sparse").
     # check_backend != "none" makes the harness run one extra scan pass on
     # that backend and assert allclose against the reference engines' finals
     # (the mandatory kernel parity check; recorded as report.kernel_check).
@@ -110,8 +122,10 @@ class ScenarioSpec:
     block_d: int | None = None
     check_backend: str = "none"
     # channel composition
-    topology: str = "ring"  # ring | full (geometric: step 11)
+    topology: str = "ring"  # ring | full | geometric
     ring_k: int = 2
+    # geometric: expected node degree of the random geometric graph on the
+    # unit square (sets the radius: r = sqrt(deg / (π n)))
     geo_degree: float = 8.0
     fading: str = "markov"  # markov | corr_shadow | corr_uplink | static
     p_up_to_down: float = 0.3
@@ -123,8 +137,11 @@ class ScenarioSpec:
     churn: str = "none"  # none | rotating
     n_cohorts: int = 5
     churn_hold: int = 4
-    # per-round cohort sampling (uniform | fixed_k | expander: step 11)
-    sampling: str = "none"
+    # per-round cohort sampling (the n ≫ 10³ regime): the active mask becomes
+    # membership ∧ sampled, with the sampler wrapping the churn process as
+    # its eligibility base.  fixed_k / expander use sample_k, uniform uses
+    # sample_rate; sample_every throttles the redraw cadence.
+    sampling: str = "none"  # none | uniform | fixed_k | expander
     sample_k: int = 0
     sample_rate: float = 0.5
     sample_every: int = 1
@@ -144,10 +161,15 @@ class ScenarioSpec:
     # round engines: rounds staged (and traced) at a time
     chunk: int = 32
     # which engines the scenario benches by default (run.py --engines
-    # overrides); "async" is step 12
+    # overrides).  "async" adds the staleness-weighted AsyncRoundEngine.
     engines: tuple = ("loop", "scan", "pipelined")
-    # async arrival model (step 12)
-    delay: str = "none"
+    # async arrival model (engines includes "async"): per-client upload
+    # delays drawn by repro_torch.channels.delay; the PS aggregates the
+    # freshest buffer_k arrivals (0 = all) with staleness discount decay**s.
+    # With delay="none" the async engine is bitwise-identical to the loop —
+    # the harness enforces exactly that as the async parity gate whenever
+    # the recorded run itself uses a nonzero delay.
+    delay: str = "none"  # none | poisson | geometric
     delay_rate: float = 1.0
     delay_max: int = 8
     staleness_decay: float = 0.8
@@ -163,29 +185,41 @@ class ScenarioSpec:
             raise ValueError(f"unknown step: {self.step!r}")
         if self.step != "sim":
             raise _not_ported(f"step={self.step!r}", _DISTRIBUTED)
+        if self.fading == "corr_uplink" and self.drift != "static":
+            raise ValueError("corr_uplink couples p to the fade; set drift='static'")
+        if self.topology == "geometric" and self.geo_degree <= 0:
+            raise ValueError("geometric topology needs geo_degree > 0")
+        if self.sampling not in ("none", "uniform", "fixed_k", "expander"):
+            raise ValueError(f"unknown sampling: {self.sampling!r}")
+        if self.sampling in ("fixed_k", "expander") and self.sample_k < 1:
+            raise ValueError(f"sampling={self.sampling!r} needs sample_k >= 1")
+        if self.sampling == "uniform" and not (0.0 < self.sample_rate <= 1.0):
+            raise ValueError("uniform sampling needs sample_rate in (0, 1]")
+        if self.sample_every < 1:
+            raise ValueError("sample_every must be >= 1")
+        # the segment backend consumes EdgeRelay operands, and the colrel
+        # strategies need a policy that actually emits EdgeRelays
+        if (
+            self.relay_backend == "segment"
+            and self.strategy in ("colrel", "colrel_fused")
+            and self.policy != "sparse"
+        ):
+            raise ValueError(
+                "relay_backend='segment' needs policy='sparse' (the other "
+                "policies emit dense relay matrices, not EdgeRelays)"
+            )
         unknown_engines = set(self.engines) - {"loop", "scan", "pipelined", "async"}
         if unknown_engines:
             raise ValueError(f"unknown engines: {sorted(unknown_engines)}")
-        if "async" in self.engines:
-            raise _not_ported("the async engine", _ASYNC)
         if self.delay not in ("none", "poisson", "geometric"):
             raise ValueError(f"unknown delay: {self.delay!r}")
-        if self.delay != "none":
-            raise _not_ported(f"delay={self.delay!r}", _ASYNC)
-        if self.policy == "sparse":
-            raise _not_ported("policy='sparse'", _SPARSE)
-        if "segment" in (self.relay_backend, self.check_backend):
-            raise _not_ported("the 'segment' backend", _SPARSE)
-        if self.topology == "geometric":
-            raise _not_ported("topology='geometric'", _SPARSE)
-        if self.sampling not in ("none", "uniform", "fixed_k", "expander"):
-            raise ValueError(f"unknown sampling: {self.sampling!r}")
-        if self.sampling != "none":
-            raise _not_ported(f"sampling={self.sampling!r}", _SPARSE)
-        if self.sample_every < 1:
-            raise ValueError("sample_every must be >= 1")
-        if self.fading == "corr_uplink" and self.drift != "static":
-            raise ValueError("corr_uplink couples p to the fade; set drift='static'")
+        if self.delay != "none" and "async" not in self.engines:
+            raise ValueError("a delay process only drives the async engine")
+        if "async" in self.engines and self.strategy not in _ASYNC_STRATEGIES:
+            raise ValueError(
+                f"the async engine supports {_ASYNC_STRATEGIES}, "
+                f"not {self.strategy!r}"
+            )
         if not 0.0 < self.staleness_decay <= 1.0:
             raise ValueError("staleness_decay must be in (0, 1]")
         if self.buffer_k < 0 or self.delay_max < 0:
@@ -259,7 +293,8 @@ class ScenarioBundle:
     loss_fn: object
     device: torch.device
     # memoized base graph: every engine run builds a fresh schedule from the
-    # same spec (the schedules copy it on construction, so sharing is safe)
+    # same spec, and a 10⁴-node geometric graph is too expensive to resample
+    # per run (the schedules copy it on construction, so sharing is safe)
     _adj: object = dataclasses.field(default=None, repr=False)
 
     def base_adjacency(self):
@@ -270,7 +305,9 @@ class ScenarioBundle:
             elif spec.topology == "full":
                 self._adj = topology.fully_connected(spec.n_clients)
             elif spec.topology == "geometric":
-                raise _not_ported("topology='geometric'", _SPARSE)
+                n = spec.n_clients
+                radius = float(np.sqrt(spec.geo_degree / (np.pi * n)))
+                self._adj = topology.random_geometric(n, radius, seed=spec.seed)
             else:
                 raise ValueError(f"unknown topology: {spec.topology!r}")
         return self._adj
@@ -331,13 +368,27 @@ class ScenarioBundle:
             kw["p"] = p0
         else:
             kw["p_process"] = p_process
+        member = None
         if spec.churn == "rotating":
             member = channels.RotatingCohorts(
                 spec.n_clients, n_cohorts=spec.n_cohorts, hold=spec.churn_hold
             )
-            return channels.ChurnSchedule(membership=member, **kw)
-        if spec.churn != "none":
+        elif spec.churn != "none":
             raise ValueError(f"unknown churn: {spec.churn!r}")
+        if spec.sampling != "none":
+            # cohort sampling composes on top of churn: the sampler's base
+            # is the membership process (active = membership ∧ sampled)
+            member = channels.CohortSampler(
+                spec.n_clients,
+                strategy=spec.sampling,
+                k=spec.sample_k if spec.sampling != "uniform" else None,
+                rate=spec.sample_rate if spec.sampling == "uniform" else None,
+                base=member,
+                resample_every=spec.sample_every,
+                seed=seed + 2,
+            )
+        if member is not None:
+            return channels.ChurnSchedule(membership=member, **kw)
         if link is None and p_process is None:
             return channels.StaticChannel(adj, p0)
         return channels.TimeVaryingChannel(**kw)
@@ -352,7 +403,12 @@ class ScenarioBundle:
                 tracer=tracer,
             )
         if spec.policy == "sparse":
-            raise _not_ported("policy='sparse'", _SPARSE)
+            return channels.SparseOptAlpha(
+                sweeps=spec.opt_sweeps,
+                warm_sweeps=spec.warm_sweeps,
+                method=spec.opt_method,
+                tracer=tracer,
+            )
         if spec.policy == "stale":
             return channels.StaleOptAlpha(
                 sweeps=spec.opt_sweeps, method=spec.opt_method
@@ -376,7 +432,16 @@ class ScenarioBundle:
         )
 
     def make_delays(self):
-        raise _not_ported("arrival delays", _ASYNC)
+        """Fresh delay process for one async-engine run (deterministic:
+        every run replays the same arrival stream)."""
+        spec = self.spec
+        return channels.make_delays(
+            spec.delay,
+            spec.n_clients,
+            rate=spec.delay_rate,
+            max_delay=spec.delay_max,
+            seed=spec.seed + 11,
+        )
 
     def make_loader(self) -> FederatedLoader:
         spec = self.spec
@@ -416,11 +481,6 @@ _REGISTRY: dict[str, ScenarioSpec] = {}
 
 # the JAX package's scenarios whose path the port does not have yet
 NOT_YET_PORTED = {
-    "sample_sweep_n1e3": "ROADMAP step 11",
-    "sample_sweep_n1e4": "ROADMAP step 11",
-    "sample_sweep_smoke": "ROADMAP step 11",
-    "async_ttac_500": "ROADMAP step 12",
-    "async_smoke": "ROADMAP step 12",
     "mesh8_smoke": "ROADMAP step 14",
     "mesh8_ring_churn": "ROADMAP step 14",
     "mesh2_dshard": "ROADMAP step 14",
@@ -668,5 +728,148 @@ register(
         drift="static",
         chunk=8,
         check_backend="hopper_fused",
+    )
+)
+
+# ------------------------------------------------------------ client n-sweep
+# The cohort-sampling scale regime: the padded client dimension grows
+# 10³ → 10⁴ while the per-round cohort stays fixed at k=128, the graph stays
+# sparse (geometric, expected degree 8) and the relay operand stays O(edges)
+# (EdgeRelay + segment backend, policy="sparse").  Every round redraws the
+# cohort, so each round is its own channel epoch — the measured regime is
+# warm-started sparse re-solves plus segment-sum aggregation.  The n1e3
+# point carries the mandatory einsum parity check (the dense reference
+# densifies the same EdgeRelays); at n1e4 the dense check matrix would be
+# 10⁸ entries, so that point relies on the loop/scan/pipelined bitwise gate.
+# The segment backend's dense (n,) reduce runs the fused-aggregate kernel
+# (kernels/ops.py).
+
+_SAMPLE_SWEEP = {
+    # name suffix -> (n_clients, n_train, rounds, check_backend)
+    "n1e3": (1_000, 4_000, 16, "einsum"),
+    "n1e4": (10_000, 20_000, 16, "none"),
+}
+
+for _suffix, (_n, _train, _rounds, _check) in _SAMPLE_SWEEP.items():
+    register(
+        ScenarioSpec(
+            name=f"sample_sweep_{_suffix}",
+            description=(
+                f"client n-sweep @ n={_n}: fixed-k cohorts (k=128) on a "
+                "sparse geometric graph, sparse OPT-α + segment aggregation"
+            ),
+            n_clients=_n,
+            rounds=_rounds,
+            local_steps=1,
+            local_batch=2,
+            dim=32,
+            width=16,
+            n_train=_train,
+            policy="sparse",
+            opt_method="bisect",
+            relay_backend="segment",
+            check_backend=_check,
+            topology="geometric",
+            geo_degree=8.0,
+            fading="static",
+            drift="static",
+            sampling="fixed_k",
+            sample_k=128,
+            chunk=1,
+        )
+    )
+
+register(
+    ScenarioSpec(
+        name="sample_sweep_smoke",
+        description=(
+            "CI-sized cohort-sampling point (n=256, k=32): sparse OPT-α, "
+            "segment aggregation and the einsum parity check in seconds"
+        ),
+        n_clients=256,
+        rounds=10,
+        local_steps=1,
+        local_batch=2,
+        dim=32,
+        width=16,
+        n_train=512,
+        policy="sparse",
+        opt_method="bisect",
+        relay_backend="segment",
+        check_backend="einsum",
+        topology="geometric",
+        geo_degree=8.0,
+        fading="static",
+        drift="static",
+        sampling="fixed_k",
+        sample_k=32,
+        chunk=1,
+    )
+)
+
+# ------------------------------------------------------------ async arrivals
+# The staleness-weighted asynchronous engine (repro_torch.fl.async_engine) under
+# sampled per-client upload delays.  The recorded quantity is
+# time-to-accuracy: rounds and wall-clock seconds to the target training
+# loss, async vs the synchronous engines.  Because a delayed run is *meant*
+# to diverge from the loop, the loop/scan/pipelined bitwise gate cannot
+# cover the async engine; instead the harness re-runs it with the delay
+# stripped (delay="none") and asserts bitwise equality with the loop — the
+# OPT-α-unbiasedness regression gate for the staleness-weighting math
+# (report.async_check; both gates are mandatory and raise on mismatch).
+
+register(
+    ScenarioSpec(
+        name="async_ttac_500",
+        description=(
+            "time-to-accuracy under Poisson(1.0) arrival delays: the "
+            "staleness-weighted async engine vs the synchronous loop / "
+            "pipelined engines on the fig5 channel, delay-0 parity gate on"
+        ),
+        n_clients=10,
+        rounds=500,
+        local_steps=2,
+        local_batch=8,
+        dim=64,
+        width=32,
+        n_train=1024,
+        adj_every=25,
+        p_every=25,
+        drift_hold=1,
+        chunk=25,
+        engines=("loop", "pipelined", "async"),
+        delay="poisson",
+        delay_rate=1.0,
+        delay_max=8,
+        staleness_decay=0.8,
+        ttac_target_loss=0.05,
+    )
+)
+
+register(
+    ScenarioSpec(
+        name="async_smoke",
+        description=(
+            "CI-sized async point: geometric delays, freshest-4 buffer, "
+            "staleness weighting and the delay-0 parity gate in seconds"
+        ),
+        n_clients=6,
+        rounds=24,
+        local_steps=2,
+        local_batch=8,
+        dim=32,
+        width=16,
+        n_train=256,
+        adj_every=8,
+        p_every=8,
+        drift_hold=1,
+        chunk=8,
+        engines=("loop", "async"),
+        delay="geometric",
+        delay_rate=1.0,
+        delay_max=4,
+        staleness_decay=0.8,
+        buffer_k=4,
+        ttac_target_loss=1.8,
     )
 )

@@ -25,6 +25,18 @@ The subsystem is four layers, consumed in order every round:
      (:class:`MarkovChurn`), deterministic shift rotation
      (:class:`RotatingCohorts`), or a fixed mask
      (:class:`StaticMembership`).
+   * cohort sampling (`sampling`): :class:`CohortSampler`, a membership
+     process emitting ``membership ∧ sampled`` — per-round client cohorts
+     (uniform / fixed-k / expander-stride draws), optionally wrapping any
+     of the processes above as the eligibility base.  The n ≫ 10³ scale
+     regime: per-round cost follows the cohort and its live edges.
+   * arrival delays (`delay`): :class:`DelayProcess` streams — Poisson
+     (:class:`PoissonDelays`), geometric (:class:`GeometricDelays`) or the
+     synchronous :class:`ZeroDelays` — deciding *when* each client's
+     computed update reaches the PS.  Consumed by the asynchronous engine
+     (:class:`repro_torch.fl.async_engine.AsyncRoundEngine`), not by the
+     schedules: delays compose on top of churn/sampling rather than
+     replacing them.
 
 2. **Schedules** (`schedule`, `churn`) — compose processes into one stream of
    :class:`ChannelState` per federated round: the realized adjacency, the
@@ -42,7 +54,10 @@ The subsystem is four layers, consumed in order every round:
    changes: an LRU cache keyed on the channel bytes (churn mask included)
    plus Gauss–Seidel warm starts from the previous optimum; under churn it
    solves the masked problem, so departed clients carry exactly zero weight.
-   :class:`StaleOptAlpha` is the channel-oblivious ablation (round-0 A
+   :class:`SparseOptAlpha` is the same policy on the neighborhood-blocked
+   solver: it emits sparse :class:`~repro_torch.core.relay.EdgeRelay`
+   operands for ``relay_backend="segment"`` and keeps solves, cache entries
+   and relay cost O(edges).  :class:`StaleOptAlpha` is the channel-oblivious ablation (round-0 A
    forever, projected onto the live topology and membership).
 
 4. **Prefetching** (`scheduler`) — the host half of the pipelined engine.
@@ -57,11 +72,6 @@ Lifecycle per round::
     state = schedule.next_round()            # (adj, p, active, epoch_id)
     A     = policy.relay_matrix(state)       # cached within an epoch
     sim.run_round(generator, ..., A=A, p=state.p, active=state.active)
-
-Not here yet: cohort sampling (``CohortSampler``, the JAX package's
-``channels/sampling.py``) and ``SparseOptAlpha`` come with the sparse slice
-of the port; the arrival-delay processes (``channels/delay.py``) with the
-async slice.
 """
 from repro_torch.channels.churn import (
     ChurnSchedule,
@@ -77,6 +87,13 @@ from repro_torch.channels.correlated import (
     circle_positions,
     spatial_covariance,
 )
+from repro_torch.channels.delay import (
+    DelayProcess,
+    GeometricDelays,
+    PoissonDelays,
+    ZeroDelays,
+    make_delays,
+)
 from repro_torch.channels.drift import (
     PiecewiseConstantDrift,
     RandomWalkDrift,
@@ -84,6 +101,7 @@ from repro_torch.channels.drift import (
 )
 from repro_torch.channels.link_state import MarkovLinkProcess, gilbert_elliott
 from repro_torch.channels.mobility import RandomWaypointMobility, geometric_adjacency
+from repro_torch.channels.sampling import CohortSampler
 from repro_torch.channels.schedule import (
     ChannelSchedule,
     ChannelSegment,
@@ -96,6 +114,7 @@ from repro_torch.channels.scheduler import (
     PrefetchStats,
     SchedulerStats,
     SegmentPrefetcher,
+    SparseOptAlpha,
     StagedChunk,
     StaleOptAlpha,
     project_to_support,
@@ -107,11 +126,15 @@ __all__ = [
     "ChannelSegment",
     "ChannelState",
     "ChurnSchedule",
+    "CohortSampler",
     "CorrelatedChannel",
     "CoupledUplinkDrift",
+    "DelayProcess",
+    "GeometricDelays",
     "MarkovChurn",
     "MarkovLinkProcess",
     "PiecewiseConstantDrift",
+    "PoissonDelays",
     "PrefetchStats",
     "RandomWalkDrift",
     "RandomWaypointMobility",
@@ -120,15 +143,18 @@ __all__ = [
     "SegmentPrefetcher",
     "ShadowedLinkProcess",
     "ShadowingField",
+    "SparseOptAlpha",
     "StagedChunk",
     "StaleOptAlpha",
     "StaticChannel",
     "StaticMembership",
     "StaticP",
     "TimeVaryingChannel",
+    "ZeroDelays",
     "circle_positions",
     "geometric_adjacency",
     "gilbert_elliott",
+    "make_delays",
     "project_to_support",
     "spatial_covariance",
 ]

@@ -9,6 +9,12 @@ perturbation that converges in a few sweeps instead of from scratch.  The
 joint OPT-α objective is convex, so warm- and cold-started solves reach the
 same S(p, A) (tested).
 
+``SparseOptAlpha`` is the same policy on the neighborhood-blocked solver
+(:func:`repro_torch.core.opt_alpha.optimize_sparse`): it returns
+:class:`~repro_torch.core.relay.EdgeRelay` operands for the ``segment``
+relay backend and keeps every per-round cost and cache entry O(E) — the
+policy to pair with per-round cohort sampling at n ≫ 10³.
+
 ``StaleOptAlpha`` is the ablation baseline: solve once on the first channel
 and reuse that A forever.  Because a relay matrix is only physically
 realizable on the *current* graph (a down link carries nothing), stale
@@ -28,8 +34,7 @@ thread), or on a background worker thread feeding a small bounded queue
 
 The PyTorch counterpart of the JAX package's ``channels/scheduler.py``: the
 host numpy is kept line for line, so the same stream gives the same relay
-matrices and the same staged items.  ``SparseOptAlpha`` needs the sparse
-``EdgeRelay`` operand and comes with the sparse slice of the port.
+matrices and the same staged items.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 
 from repro_torch.channels.schedule import ChannelSegment, ChannelState
 from repro_torch.core import opt_alpha, topology
+from repro_torch.core import relay as relay_lib
 from repro_torch.obs import NULL_TRACER
 from repro_torch.utils import resolve_device, tree_map
 
@@ -194,6 +200,134 @@ class AdaptiveOptAlpha:
         return res.A
 
 
+class SparseOptAlpha:
+    """Neighborhood-blocked OPT-α policy: ``relay_matrix`` returns an
+    :class:`~repro_torch.core.relay.EdgeRelay` instead of a dense matrix.
+
+    The scale-path sibling of :class:`AdaptiveOptAlpha` for
+    ``relay_backend="segment"``: nothing here is O(n²) or O(n²)-sized —
+    the closed-neighborhood CSC structure is extracted once per distinct
+    adjacency (memoized on the channel key's adjacency bytes, which the
+    schedule interns for an unchanged graph, so the comparison is a pointer
+    check) and every solve reuses it; the LRU cache stores (E,) value
+    vectors, not (n, n) matrices, so per-round cohorts at n = 10⁴ don't
+    hoard gigabytes; warm starts project the previous cohort's edge values
+    (:func:`repro_torch.core.opt_alpha.warm_start_vals`).  Same counters and
+    telemetry as the dense policy.
+
+    Every returned EdgeRelay shares the graph's index arrays and segment
+    layout (built once a graph: the fixed-order summation plan of
+    :mod:`repro_torch.core.relay`) and spans the *full* closed structure
+    with zeros on inactive entries — constant edge count, so a cohort
+    change moves only the (E,) values.
+    """
+
+    def __init__(
+        self,
+        *,
+        sweeps: int = 40,
+        warm_sweeps: int | None = None,
+        tol: float = 1e-10,
+        cache_size: int = 64,
+        warm_start: bool = True,
+        method: str = "bisect",
+        tracer=None,
+    ):
+        if cache_size < 1:
+            raise ValueError("cache_size must be >= 1")
+        self.sweeps = sweeps
+        self.warm_sweeps = sweeps if warm_sweeps is None else warm_sweeps
+        self.tol = tol
+        self.cache_size = cache_size
+        self.warm_start = warm_start
+        self.method = method
+        self.stats = SchedulerStats()
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self._cache: OrderedDict[tuple, relay_lib.EdgeRelay] = OrderedDict()
+        self._graph: topology.ClosedGraph | None = None
+        self._graph_bytes: bytes | None = None
+        self._rows32: np.ndarray | None = None
+        self._cols32: np.ndarray | None = None
+        self._layout: relay_lib.SegmentLayout | None = None
+        self._last_vals: np.ndarray | None = None
+
+    def relay_matrix(self, state: ChannelState) -> relay_lib.EdgeRelay:
+        self.stats.rounds += 1
+        key = state.key()
+        hit = self._cache.get(key)
+        if hit is not None:
+            self._cache.move_to_end(key)
+            self.stats.cache_hits += 1
+            if self.tracer.enabled:
+                self.tracer.count("opt_alpha.cache_hits")
+            self._last_vals = np.asarray(hit.vals, dtype=np.float64)
+            return hit
+        self.stats.cache_misses += 1
+        if self.tracer.enabled:
+            self.tracer.count("opt_alpha.cache_misses")
+        adj_bytes = key[0]
+        if self._graph is None or self._graph_bytes != adj_bytes:
+            self._graph = topology.closed_csc(state.adj)
+            self._graph_bytes = adj_bytes
+            self._rows32 = self._graph.rows.astype(np.int32)
+            self._cols32 = self._graph.cols.astype(np.int32)
+            self._layout = relay_lib.segment_layout(
+                self._rows32, self._cols32, self._graph.n
+            )
+            for x in (self._rows32, self._cols32, *self._layout):
+                x.setflags(write=False)
+            self._last_vals = None  # old vals index a different structure
+        g = self._graph
+        p = state.p.astype(np.float64)
+        vals0 = None
+        sweeps = self.sweeps
+        if self.warm_start and self._last_vals is not None:
+            vals0 = opt_alpha.warm_start_vals(p, g, self._last_vals, state.active)
+            sweeps = self.warm_sweeps
+            self.stats.warm_solves += 1
+
+        def _solve():
+            return opt_alpha.optimize_sparse(
+                p,
+                active=state.active,
+                graph=g,
+                sweeps=sweeps,
+                tol=self.tol,
+                vals0=vals0,
+                method=self.method,
+            )
+
+        if self.tracer.enabled:
+            with self.tracer.span(
+                "opt_alpha.solve",
+                cat="solve",
+                epoch=state.epoch_id,
+                n_active=state.n_active,
+                warm=vals0 is not None,
+                sparse=True,
+            ):
+                res = _solve()
+            self.tracer.count("opt_alpha.solves")
+            self.tracer.count("opt_alpha.sweeps", res.sweeps)
+        else:
+            res = _solve()
+        self.stats.solves += 1
+        self.stats.sweeps_total += res.sweeps
+        vals32 = res.vals.astype(np.float32)
+        vals32.setflags(write=False)
+        er = relay_lib.EdgeRelay(
+            rows=self._rows32, cols=self._cols32, vals=vals32, layout=self._layout
+        )
+        self._cache[key] = er
+        if len(self._cache) > self.cache_size:
+            self._cache.popitem(last=False)
+            self.stats.evictions += 1
+            if self.tracer.enabled:
+                self.tracer.count("opt_alpha.evictions")
+        self._last_vals = res.vals
+        return er
+
+
 @dataclasses.dataclass(frozen=True)
 class StagedChunk:
     """One unit of prefetched work: at most ``chunk`` rounds of a single
@@ -208,9 +342,9 @@ class StagedChunk:
     """
 
     segment: ChannelSegment
-    # the segment's relay matrix (None ⇒ no relaying), from
-    # AdaptiveOptAlpha/StaleOptAlpha
-    A: np.ndarray | None
+    # the segment's relay operator (None ⇒ no relaying): a dense matrix from
+    # AdaptiveOptAlpha/StaleOptAlpha, or an EdgeRelay from SparseOptAlpha
+    A: np.ndarray | relay_lib.EdgeRelay | None
     batches: Any  # pytree of tensors, leaves stacked (n_rounds, ...), on device
     start: int  # offset of this chunk within the segment
     n_rounds: int  # real rounds in this chunk (≤ chunk)
@@ -604,16 +738,23 @@ def _stack_host(batches: list, pad: int) -> Any:
 
 
 def _to_device(host: Any, *, device: torch.device, stream=None) -> Any:
-    """Move a host-stacked pytree to ``device``, one tensor a leaf.  To a GPU
+    """Move a host pytree of numpy arrays to ``device``, one tensor a leaf of
+    the same dtype (an EdgeRelay's int32 indices stay int32).  To a GPU
     each leaf is copied into pinned memory and from there, with
     ``non_blocking=True``, on ``stream``: a copy from pageable memory would
     wait until the stream's in-flight chunk had finished, and stall staging
-    for a full chunk's compute time."""
+    for a full chunk's compute time.  A read-only leaf (the policies freeze
+    theirs) is copied first, since torch does not wrap one."""
+
+    def host_tensor(x):
+        x = np.asarray(x)
+        return torch.from_numpy(x if x.flags.writeable else x.copy())
+
     if device.type != "cuda":
-        return tree_map(lambda x: torch.as_tensor(x, device=device), host)
+        return tree_map(lambda x: host_tensor(x).to(device), host)
     with torch.cuda.stream(stream):
         return tree_map(
-            lambda x: torch.from_numpy(x).pin_memory().to(device, non_blocking=True),
+            lambda x: host_tensor(x).pin_memory().to(device, non_blocking=True),
             host,
         )
 

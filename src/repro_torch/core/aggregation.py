@@ -27,8 +27,12 @@ Flat-buffer hot path (``relay_backend``)
 Every strategy works on the raveled ``(n, D)`` buffer
 (``repro_torch.utils.stacked_ravel``).  ``backend`` dispatches the
 (n,n)·(n,D) contraction: ``einsum`` is plain torch, ``hopper`` materializes
-Δ̃ = A·Δ through the CUDA mix kernel, and ``hopper_fused`` runs the
-relay∘aggregate composition u = (w·τᵀA)·Δ as one fused-kernel pass.  The
+Δ̃ = A·Δ through the CUDA mix kernel, ``hopper_fused`` runs the
+relay∘aggregate composition u = (w·τᵀA)·Δ as one fused-kernel pass, and
+``segment`` consumes a sparse ``relay.EdgeRelay`` operand and contracts by
+fixed-order segment sums — O(E) in the edge count, the n ≫ 10³ regime of
+cohort sampling over sparse geometric graphs — before the same fused-kernel
+reduce (``kernels/ops.py`` says why the kernel and not the plain chain).  The
 pytree ``Aggregator.fn`` is a thin ravel → flat → unravel wrapper, so all
 callers share one math definition.
 """
@@ -79,10 +83,22 @@ def colrel_increment_flat(A, tau, buf, *, n: int, fused: bool = True,
     materializes Δ̃ = A·Δ (paper-faithful protocol shape) then runs the blind
     masked sum w·Σ τ_r Δ̃_r.  Churn: inactive rows/cols of A are zeroed and
     τ intersected with the mask, so inactive slots contribute exactly zero.
+
+    ``backend="segment"`` takes A as an :class:`~repro_torch.core.relay.EdgeRelay`
+    (dense matrices are refused — the point is never materializing (n, n));
+    the coefficient contraction τᵀA becomes an O(E) segment sum and the rest
+    of the pipeline is unchanged.  Conversely the dense backends accept an
+    EdgeRelay by densifying it — a small-n parity convenience.
     """
     kernel_ops.validate_backend(backend)
+    if backend == "segment" and not isinstance(A, relay_lib.EdgeRelay):
+        raise ValueError(
+            "relay_backend='segment' needs an EdgeRelay operand (e.g. a "
+            "sparse OPT-α policy / SparseOptAlphaResult.edge_relay()); "
+            "got a dense relay matrix"
+        )
     dev = buf.device
-    A = _f32(A, dev)
+    A = relay_lib.as_relay_operand(A, n=buf.shape[0], backend=backend, device=dev)
     w = active_weight(None if active is None else _f32(active, dev), n=n)
     tau = _f32(tau, dev)
     if active is not None:
@@ -130,8 +146,10 @@ def no_dropout_increment_flat(buf, *, n: int, active=None,
 
 def _coeff_reduce(coeffs, buf, backend):
     # non-colrel strategies are already a single weighted reduce with dense
-    # (n,) coefficients: both kernel backends collapse to the fused-reduction
-    # kernel
+    # (n,) coefficients: the kernel backends and "segment" (nothing sparse
+    # left to exploit) collapse to the fused-reduction kernel — so an
+    # all-inactive cohort stays the exact-zero coefficient vector on every
+    # backend rather than tripping a sparse path with no edges
     kernel_ops.validate_backend(backend)
     reduce_backend = "einsum" if backend == "einsum" else "hopper_fused"
     return kernel_ops.reduce_flat(coeffs, buf, backend=reduce_backend)

@@ -69,11 +69,17 @@ def _stack_rounds(batches: list, device: torch.device) -> Any:
     return _to_device(_stack_host(batches, 0), device=device)
 
 
-def _segment_value(x, device: torch.device) -> torch.Tensor | None:
-    """One of a segment's (A, p, active) as f32 on ``device``, copied
-    without waiting for the stream's in-flight rounds."""
+def _segment_value(x, device: torch.device):
+    """One of a segment's (A, p, active) on ``device``, copied without
+    waiting for the stream's in-flight rounds: f32, except that an
+    :class:`~repro_torch.core.relay.EdgeRelay` keeps its leaves' dtypes
+    (int32 indices, f32 values)."""
     if x is None:
         return None
+    if isinstance(x, relay_lib.EdgeRelay):
+        if isinstance(x.vals, torch.Tensor):
+            return x
+        return _to_device(x, device=device)
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return _to_device(np.array(x, dtype=np.float32), device=device)
@@ -86,7 +92,8 @@ def _segment_operands(sim: FLSimulator, A, active):
         sim.A
         if A is None
         else relay_lib.as_relay_operand(
-            _segment_value(A, sim.device), n=sim.n, device=sim.device
+            _segment_value(A, sim.device), n=sim.n, backend=sim.relay_backend,
+            device=sim.device,
         )
     )
     if A_seg is None and sim.strategy in ("colrel", "colrel_fused"):

@@ -49,8 +49,11 @@ class FLSimulator:
     are excluded from the metrics; the blind weight renormalizes to
     1/n_active.
 
-    ``relay_backend`` ∈ {einsum, hopper, hopper_fused} picks the engine for
-    the relay∘aggregate contraction over the raveled ``(n, D)`` delta buffer.
+    ``relay_backend`` ∈ {einsum, hopper, hopper_fused, segment} picks the
+    engine for the relay∘aggregate contraction over the raveled ``(n, D)``
+    delta buffer; ``segment`` takes the sparse
+    :class:`~repro_torch.core.relay.EdgeRelay` operands of
+    ``channels.SparseOptAlpha`` (the dense backends densify one).
 
     ``device`` defaults to the GPU, and construction raises when there is
     none; pass ``device="cpu"`` to run on the CPU.
@@ -83,7 +86,9 @@ class FLSimulator:
             if p is not None
             else torch.ones((n_clients,), device=self.device)
         )
-        self.A = relay_lib.as_relay_operand(A, n=n_clients, device=self.device)
+        self.A = relay_lib.as_relay_operand(
+            A, n=n_clients, backend=relay_backend, device=self.device
+        )
         self.aggregator = aggregation.make_aggregator(
             strategy, n=n_clients, relay_backend=relay_backend
         )
@@ -148,7 +153,9 @@ class FLSimulator:
         tau = torch.as_tensor(tau, dtype=torch.float32, device=self.device)
         A_round = (
             self.A if A is None
-            else relay_lib.as_relay_operand(A, n=self.n, device=self.device)
+            else relay_lib.as_relay_operand(
+                A, n=self.n, backend=self.relay_backend, device=self.device
+            )
         )
         active_round = (
             None if active is None

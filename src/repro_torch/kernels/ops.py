@@ -8,12 +8,22 @@ The ``relay_backend`` knob (``make_aggregator``, ``FLSimulator``):
                 plain reduction
   hopper_fused  CUDA kernel u = (w·τᵀA)·Δ — relay∘aggregate in one pass,
                 writing D values instead of n·D
+  segment       sparse edge-list path (``core.relay.EdgeRelay`` and its
+                fixed-order segment sums): relay∘aggregate cost scales with
+                the edge count E, not n² — the n ≫ 10³ cohort-sampling regime
 
 The JAX package's ``pallas``/``pallas_fused`` are ``hopper``/``hopper_fused``
 here.  Its ``block_d`` and ``interpret`` knobs are gone: they tile the TPU's
 vector memory and run Pallas on a CPU, and the CUDA kernels pick their own
-tiles and mask the ragged tail of D.  The sparse ``segment`` backend belongs
-to a later slice of the port and is refused with a clear error until then.
+tiles and mask the ragged tail of D.
+
+One deliberate difference from the JAX package: the dense (n,) reduce that
+follows ``segment``'s sparse coefficients goes to the fused-aggregate kernel
+(``hopper_fused``), where the JAX package sends it to its einsum.  The
+port's plain reduce is a chain of n ``addcmul``s (``kernels/ref.py``), which
+at n = 10⁴ would be 10⁴ launches a round on the hot path; the kernel is the
+same function with the same summation order (bit for bit equal to the chain
+on the card), and on a CPU buffer the wrapper runs that chain.
 """
 from __future__ import annotations
 
@@ -24,16 +34,10 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import relay_mix as _k
 from repro_torch.utils import tree_map
 
-RELAY_BACKENDS = ("einsum", "hopper", "hopper_fused")
+RELAY_BACKENDS = ("einsum", "hopper", "hopper_fused", "segment")
 
 
 def validate_backend(backend: str) -> str:
-    if backend == "segment":
-        raise NotImplementedError(
-            "relay_backend='segment' (the sparse EdgeRelay path) is not "
-            "ported to repro_torch yet; use 'einsum', 'hopper' or "
-            "'hopper_fused'"
-        )
     if backend not in RELAY_BACKENDS:
         raise ValueError(f"unknown relay_backend {backend!r} (known: {RELAY_BACKENDS})")
     return backend
@@ -85,9 +89,26 @@ def fused_aggregate(A, tau, stacked, *, w, active=None):
 
 def mix_flat(A, buf: torch.Tensor, *, active=None, backend: str = "einsum"):
     """Δ̃ = A·Δ on the contiguous (n, D) buffer.  ``backend`` picks the plain
-    torch product or the CUDA mix kernel; ``active`` is the churn mask
-    (zeroes inactive rows/cols of A before dispatch, on every backend)."""
+    torch product, the CUDA mix kernel, or the sparse segment sums
+    (``backend="segment"``, which needs an :class:`~repro_torch.core.relay.EdgeRelay`
+    operand; the dense backends densify one); ``active`` is the churn mask
+    (zeroes inactive rows/cols of A — or the touching edge values — before
+    dispatch, on every backend)."""
     validate_backend(backend)
+    if backend == "segment":
+        if not isinstance(A, relay_lib.EdgeRelay):
+            raise ValueError(
+                "relay_backend='segment' needs an EdgeRelay operand "
+                "(a sparse OPT-α policy); got a dense relay matrix — "
+                "use relay_backend='einsum' or convert via "
+                "relay.edge_relay_from_dense"
+            )
+        if active is not None:
+            A = relay_lib.mask_relay_matrix(A, active)
+        return relay_lib.segment_mix(A, buf)
+    if isinstance(A, relay_lib.EdgeRelay):
+        A = relay_lib.as_relay_operand(A, n=buf.shape[0], backend=backend,
+                                       device=buf.device)
     A = _mask_A(A, active, buf.device)
     if backend == "einsum":
         return _ref.relay_mix_2d(A, buf)
@@ -97,7 +118,10 @@ def mix_flat(A, buf: torch.Tensor, *, active=None, backend: str = "einsum"):
 def reduce_flat(coeffs, buf: torch.Tensor, *, backend: str = "einsum"):
     """u = coeffs·Δ on the (n, D) buffer → (D,).  ``coeffs`` already carries
     every weighting (w·τᵀA for the fused colrel path, w·τ for the blind
-    sum, ...), so churn masking happens in the caller's coefficients."""
+    sum, ...), so churn masking happens in the caller's coefficients.
+    Every backend but ``einsum`` runs the fused-aggregate kernel: ``segment``
+    lands here with a dense (n,) coefficient vector — the sparsity was spent
+    computing it (see the module docstring)."""
     validate_backend(backend)
     coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=buf.device)
     if backend == "einsum":

@@ -4,7 +4,9 @@ view of a pytree as one contiguous buffer.
 Leaf order follows ``jax.tree.flatten``: dict keys are visited in *sorted*
 order at every level.  (``torch.utils._pytree`` keeps insertion order, so it
 is not used here.)  With the same order, the port's ``(n, D)`` buffer from
-:func:`stacked_ravel` matches the JAX package's column by column.
+:func:`stacked_ravel` matches the JAX package's column by column.  As in
+``jax.tree``, a NamedTuple keeps its type through a map (an ``EdgeRelay``
+comes back an ``EdgeRelay``) and ``None`` is a node without leaves.
 """
 from __future__ import annotations
 
@@ -15,9 +17,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-# a treedef is a nested tuple: ("leaf",), ("dict", keys, children),
-# ("list", children) or ("tuple", children)
+# a treedef is a nested tuple: ("leaf",), ("none",), ("dict", keys,
+# children), ("list", children), ("tuple", children) or ("namedtuple", type,
+# children)
 _LEAF = ("leaf",)
+_NONE = ("none",)
 
 
 def tree_flatten(tree) -> tuple[list, tuple]:
@@ -25,9 +29,13 @@ def tree_flatten(tree) -> tuple[list, tuple]:
     leaves: list = []
 
     def walk(node):
+        if node is None:
+            return _NONE
         if isinstance(node, dict):
             keys = tuple(sorted(node))
             return ("dict", keys, tuple(walk(node[k]) for k in keys))
+        if isinstance(node, tuple) and hasattr(type(node), "_fields"):
+            return ("namedtuple", type(node), tuple(walk(x) for x in node))
         if isinstance(node, (list, tuple)):
             kind = "list" if isinstance(node, list) else "tuple"
             return (kind, tuple(walk(x) for x in node))
@@ -43,8 +51,12 @@ def tree_unflatten(treedef: tuple, leaves) -> Any:
     def build(td):
         if td == _LEAF:
             return next(it)
+        if td == _NONE:
+            return None
         if td[0] == "dict":
             return {k: build(c) for k, c in zip(td[1], td[2])}
+        if td[0] == "namedtuple":
+            return td[1](*(build(c) for c in td[2]))
         children = [build(c) for c in td[1]]
         return children if td[0] == "list" else tuple(children)
 

@@ -82,8 +82,11 @@ def test_make_aggregator_errors():
         aggregation.make_aggregator("median", n=3)
     with pytest.raises(ValueError, match="relay matrix A"):
         aggregation.make_aggregator("colrel", n=3).flat_fn(torch.ones(3), torch.ones(3, 4))
-    with pytest.raises(NotImplementedError, match="segment"):
-        aggregation.make_aggregator("colrel", n=3, relay_backend="segment")
+    # the JAX package's contract: a dense A on the segment backend is refused
+    with pytest.raises(ValueError, match="needs an EdgeRelay operand"):
+        aggregation.make_aggregator("colrel", n=3, A=np.eye(3),
+                                    relay_backend="segment").flat_fn(torch.ones(3),
+                                                                     torch.ones(3, 4))
 
 
 @pytest.mark.parametrize("momentum, lr", [(0.0, 1.0), (0.9, 1.0), (0.5, 0.3)])

@@ -28,6 +28,7 @@ from repro.bench import harness as jax_harness
 from repro.bench import scenarios as jax_scenarios
 from repro.fl.engine import EpochScanEngine as JaxEpochScanEngine
 from repro_torch.bench import harness, report as report_lib, scenarios
+from repro_torch.core.relay import EdgeRelay
 from repro_torch.fl.engine import EpochScanEngine
 from repro_torch.utils import from_jax_params, tree_flatten
 
@@ -51,6 +52,15 @@ def _mapped(jspec) -> dict:
     for key in ("relay_backend", "check_backend"):
         d[key] = scenarios.BACKEND_FROM_JAX.get(d[key], d[key])
     return d
+
+
+def _same_operand(t, j) -> bool:
+    """A relay operand equal to the JAX package's: a dense matrix, or an
+    EdgeRelay's indices and values (the port's also carries its layout)."""
+    if isinstance(t, EdgeRelay):
+        return all(np.array_equal(x, y) and np.asarray(x).dtype == np.asarray(y).dtype
+                   for x, y in zip((t.rows, t.cols, t.vals), (j.rows, j.cols, j.vals)))
+    return np.array_equal(t, j)
 
 
 def _cut(spec, rounds=CUT):
@@ -86,13 +96,6 @@ def test_unported_scenario_raises_naming_its_step(name):
     [
         (dict(step="mesh"), 14),
         (dict(step="shard", devices=2), 14),
-        (dict(engines=("loop", "async")), 12),
-        (dict(delay="poisson"), 12),
-        (dict(policy="sparse"), 11),
-        (dict(relay_backend="segment"), 11),
-        (dict(check_backend="segment"), 11),
-        (dict(topology="geometric"), 11),
-        (dict(sampling="fixed_k", sample_k=4), 11),
     ],
     ids=lambda x: str(x),
 )
@@ -105,6 +108,13 @@ def test_spec_validation_and_registry_errors():
     base = scenarios.get_scenario("bench_smoke")
     for change, match in ((dict(step="ring"), "unknown step"),
                           (dict(engines=("loop", "fused")), "unknown engines"),
+                          (dict(delay="poisson"), "only drives the async engine"),
+                          (dict(engines=("loop", "async"), strategy="colrel"),
+                           "async engine supports"),
+                          (dict(relay_backend="segment"), "needs policy='sparse'"),
+                          (dict(sampling="fixed_k"), "needs sample_k"),
+                          (dict(sampling="uniform", sample_rate=0.0), "sample_rate"),
+                          (dict(topology="geometric", geo_degree=0.0), "geo_degree"),
                           (dict(relay_backend="pallas"), "unknown relay_backend"),
                           (dict(check_backend="einsum"), "must differ"),
                           (dict(fading="corr_uplink"), "corr_uplink"),
@@ -137,7 +147,7 @@ def test_bundle_equals_jax_bundle(name):
         assert (tseg.epoch_id, tseg.start_round, tseg.n_rounds) == (
             jseg.epoch_id, jseg.start_round, jseg.n_rounds)
         assert tseg.state.key() == jseg.state.key()
-        assert np.array_equal(tpol.relay_matrix(tseg.state), jpol.relay_matrix(jseg.state))
+        assert _same_operand(tpol.relay_matrix(tseg.state), jpol.relay_matrix(jseg.state))
     assert dataclasses.asdict(tpol.stats) == dataclasses.asdict(jpol.stats)
     for tbatch, jbatch in zip(harness._pregenerate_batches(tb),
                               jax_harness._pregenerate_batches(jb), strict=True):
@@ -148,9 +158,27 @@ def test_bundle_equals_jax_bundle(name):
 
 
 def test_unported_bundle_branches_raise():
-    bundle = scenarios.build(scenarios.get_scenario("bench_smoke"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP step 12"):
-        bundle.make_delays()
+    """The bundle branches that raised until the sparse and async slices
+    (geometric graph, cohort sampler, sparse policy, delays) now build the
+    JAX package's objects; unknown values still raise."""
+    from repro_torch import channels
+
+    bundle = scenarios.build(scenarios.get_scenario("sample_sweep_smoke"), device="cpu")
+    assert isinstance(bundle.make_policy(), channels.SparseOptAlpha)
+    assert isinstance(bundle.make_schedule()._member, channels.CohortSampler)
+    jb = jax_scenarios.build(jax_scenarios.get_scenario("async_smoke"))
+    tb = scenarios.build(scenarios.get_scenario("async_smoke"), device="cpu")
+    td, jd = tb.make_delays(), jb.make_delays()
+    assert isinstance(td, channels.GeometricDelays)
+    for _ in range(5):
+        assert np.array_equal(td.sample(), jd.sample())
+    for change in (dict(topology="torus"), dict(policy="greedy"), dict(delay="uniform")):
+        bad = scenarios.build(dataclasses.replace(scenarios.get_scenario("bench_smoke"),
+                                                  name="x"), device="cpu")
+        object.__setattr__(bad.spec, *next(iter(change.items())))
+        with pytest.raises(ValueError, match="unknown"):
+            {"topology": bad.base_adjacency, "policy": bad.make_policy,
+             "delay": bad.make_delays}[next(iter(change))]()
 
 
 # ---------------------------------------------------------------- the MLP
@@ -294,8 +322,14 @@ def test_ttac_and_unported_engines():
     result = harness.run_scenario(spec, engines=("loop",), device="cpu")
     assert result["bitwise_match"] is None  # one engine: nothing to compare
     assert result["ttac"]["engines"]["loop"]["rounds_to_target"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP step 12"):
-        harness.run_scenario(spec, engines=("async",), device="cpu")
+    # the async engine (the last engine refused until the async slice) runs
+    # and reports its time to accuracy; at delay 0 it joins the bitwise gate
+    result = harness.run_scenario(spec, engines=("loop", "async"), device="cpu")
+    assert result["bitwise_match"] is True and result["async_check"] is None
+    ttac = result["ttac"]["engines"]
+    assert ttac["async"]["rounds_to_target"] == ttac["loop"]["rounds_to_target"] == 1
+    assert ttac["async"]["seconds_to_target"] > 0
+    assert result["runs"]["async"].dispatches == spec.rounds
 
 
 # ---------------------------------------------------------- report + gate

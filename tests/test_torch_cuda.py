@@ -274,3 +274,107 @@ def test_bench_scenario_gates_and_launches_on_card(deterministic, name):
     rep = report.make_report(spec, result)
     assert rep["backend"] == "cuda"
     assert rep["device"]["name"] == torch.cuda.get_device_name(0)
+
+
+# -- the sparse path and the async engine on the card ------------------------
+
+
+@pytest.mark.parametrize("n", [1_000, 1_025, 10_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_bitwise_at_segment_shapes(dev, n, dtype):
+    """The segment backend's dense reduce at the sample sweeps' D = 698:
+    n past the 1,024 coefficients the kernel stages at once (and one past
+    it) gives the plain version's bits, twice."""
+    _, c, d = _inputs(n, 698, dtype, dev)
+    u = k.fused_aggregate_2d(c, d)
+    assert torch.equal(u, ref.fused_aggregate_2d(c.to(dtype), d))
+    assert torch.equal(k.fused_aggregate_2d(c, d), u)
+    assert torch.equal(ops.reduce_flat(c, d, backend="segment"), u)
+
+
+def _geometric_edge_relay(n, seed):
+    import numpy as np
+
+    from repro_torch.core import opt_alpha, topology
+
+    adj = topology.random_geometric(n, float(np.sqrt(8.0 / (np.pi * n))), seed=seed)
+    p = np.random.default_rng(seed).uniform(0.2, 0.9, n)
+    active = np.random.default_rng(seed + 1).random(n) < 0.3
+    return opt_alpha.optimize_sparse(p, adj, active, sweeps=5).edge_relay(), active
+
+
+@pytest.mark.parametrize("n", [300, 5_000])
+def test_segment_ops_repeatable_on_card(dev, n):
+    """fused_coefficients and segment_mix on an EdgeRelay on the card: two
+    calls give the same bits (no atomics), within 1e-6 / 1e-5 of the same
+    ops on the CPU, and the masked increment on ``segment`` launches the
+    fused kernel once."""
+    from repro_torch.core import aggregation
+    from repro_torch.core import relay as relay_lib
+
+    er, active = _geometric_edge_relay(n, seed=n)
+    gen = torch.Generator().manual_seed(n)
+    tau = torch.bernoulli(torch.full((n,), 0.6), generator=gen)
+    buf = torch.randn(n, 698, generator=gen)
+    on = relay_lib.as_relay_operand(er, n=n, backend="segment", device=dev)
+    assert on.rows.dtype == torch.int32 and on.layout.by_col.device.type == "cuda"
+    for fn, args, atol in ((relay_lib.fused_coefficients, (tau,), 1e-6),
+                           (relay_lib.segment_mix, (buf,), 1e-5)):
+        a, b = fn(on, *(x.to(dev) for x in args)), fn(on, *(x.to(dev) for x in args))
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), fn(er, *args), atol=atol, rtol=atol)
+    k.reset_launches()
+    act = torch.as_tensor(active, dtype=torch.float32, device=dev)
+    inc = [aggregation.colrel_increment_flat(on, tau.to(dev), buf.to(dev), n=n, active=act,
+                                             backend="segment") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(inc[0], inc[1])
+    assert k.LAUNCHES == {"relay_mix_2d": 0, "fused_aggregate_2d": 2}
+
+
+@pytest.mark.parametrize("strategy", ["colrel_fused", "fedavg_blind"])
+def test_async_delay0_bitwise_equal_to_loop_on_card(dev, strategy):
+    """AsyncRoundEngine at ZeroDelays against run_rounds_loop on
+    ``hopper_fused`` under churn, fading and drift: bitwise equal params,
+    server state, metrics and generator state, and the fused kernel once a
+    round in both."""
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.fl.async_engine import AsyncRoundEngine
+    from repro_torch.fl.engine import run_rounds_loop
+    from repro_torch.fl.simulator import FLSimulator
+
+    n, rounds, dim = 6, 17, 4097
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    def run(name):
+        rng = np.random.default_rng(42)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy=strategy, local_steps=2,
+                          relay_backend="hopper_fused", server_opt=ServerOpt(momentum=0.5))
+        params = {"x": torch.ones(dim, device=dev)}
+        kw = dict(schedule=_churn_schedule(n), rounds=rounds, lr=0.1,
+                  policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+                  next_batch=lambda: {"c": rng.standard_normal((n, 2, 4, dim))
+                                      .astype(np.float32)})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        k.reset_launches()
+        state = sim.init_server_state(params)
+        if name == "loop":
+            out = run_rounds_loop(sim, gen, params, state, **kw)
+        else:
+            out = AsyncRoundEngine(sim).run_schedule(gen, params, state, **kw)
+        torch.cuda.synchronize()
+        return out, dict(k.LAUNCHES)
+
+    (lp, ls, lm, lg), loop_launches = run("loop")
+    (ap, as_, am, ag), launches = run("async")
+    assert launches == loop_launches == {"relay_mix_2d": 0, "fused_aggregate_2d": rounds}
+    assert torch.equal(ap["x"], lp["x"]) and torch.equal(as_["x"], ls["x"])
+    for name in ("loss", "tau", "delta_norm"):
+        assert torch.equal(am[name], lm[name])
+    assert torch.equal(ag.get_state(), lg.get_state())

@@ -130,9 +130,11 @@ def test_ops_backend_names():
         ops.mix_flat(torch.eye(2), buf, backend="pallas")
     with pytest.raises(ValueError, match="relay_backend"):
         ops.reduce_flat(torch.ones(2), buf, backend="cuda")
-    with pytest.raises(NotImplementedError, match="segment"):
+    # the JAX package's contract: a dense matrix on the segment backend is
+    # refused with its message
+    with pytest.raises(ValueError, match="needs an EdgeRelay operand"):
         ops.mix_flat(torch.eye(2), buf, backend="segment")
-    assert ops.RELAY_BACKENDS == ("einsum", "hopper", "hopper_fused")
+    assert ops.RELAY_BACKENDS == ("einsum", "hopper", "hopper_fused", "segment")
 
 
 @pytest.mark.parametrize("backend", ["einsum", "hopper", "hopper_fused"])

@@ -106,3 +106,21 @@ def test_from_jax_params_keeps_bf16_bits_and_structure():
     assert tree_size(got) == 12 + 3 + 2
     doubled = tree_map(lambda a: a * 2, got["y"])
     assert doubled[1].tolist() == [2.0, 2.0]
+
+
+def test_namedtuples_and_none_keep_their_structure_like_jax():
+    """A NamedTuple comes back as its own type and None is a node without
+    leaves, as in ``jax.tree``: an EdgeRelay survives ``tree_map``."""
+    import collections
+
+    Pair = collections.namedtuple("Pair", ["a", "b"])
+    tree = {"p": Pair(np.arange(3.0), None), "q": (np.ones(2), None)}
+    leaves, treedef = tree_flatten(tree)
+    assert len(leaves) == len(jax.tree.leaves(tree)) == 2
+    back = tree_unflatten(treedef, leaves)
+    assert type(back["p"]) is Pair and back["p"].b is None and back["q"][1] is None
+    doubled = tree_map(lambda x: 2 * x, tree)
+    assert type(doubled["p"]) is Pair
+    assert np.array_equal(doubled["p"].a, 2 * np.arange(3.0))
+    want = jax.tree.map(lambda x: 2 * x, tree)
+    assert type(want["p"]) is Pair and want["p"].b is None
