@@ -29,8 +29,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
             fading on ring(10, 2), piecewise-constant p drift, rotating-cohort
             churn; epochs of unequal length), A from ``AdaptiveOptAlpha``,
             through ``run_rounds_loop``, ``EpochScanEngine`` and
-            ``PipelinedScanEngine`` (inline and threaded prefetch), for colrel
-            on ``hopper`` and colrel_fused on ``hopper_fused``.  Gates: each
+            ``PipelinedScanEngine`` (inline and threaded prefetch), 12 rounds
+            a run, for colrel on ``hopper`` and colrel_fused on
+            ``hopper_fused``.  Gates: each
             engine bitwise equal to its loop (params, server state, per-round
             loss/τ/delta_norm, generator state); the engines' scheduler
             stats equal to each other and their solves to the loop's; each
@@ -53,8 +54,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
             losses.  Prints rounds/s and compile_s per engine, the
             pipelined engine's overlap, the kernel check and model_params.
 7. sparse   the bench harness on the cohort-sampling sweeps at their
-            registered sizes: sample_sweep_smoke (n = 256), _n1e3 and _n1e4
-            (n = 10⁴, about 28 MB of (n, D) f32 buffer): a sparse geometric
+            registered sizes: sample_sweep_smoke (n = 256), _n1e3 (8 of its
+            16 rounds, for time) and _n1e4 (n = 10⁴, about 28 MB of (n, D)
+            f32 buffer): a sparse geometric
             graph, fixed-k cohorts redrawn every round, SparseOptAlpha and
             the ``segment`` backend, whose dense reduce is the fused kernel.
             Gates: the engines bitwise equal to the loop; the einsum check
@@ -78,12 +80,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
             rounds to the target loss for every engine.  (async_ttac_500
             runs on its own: ``python -m repro_torch.bench.run --scenario
             async_ttac_500``.)
+9. service  the continuous-training service (``repro_torch.launch``) on
+            ResNet-20/GN at full width (n = 10, D = 272,282) under the Fig. 6
+            channel with churn, AdaptiveOptAlpha and server momentum 0.9:
+            ``ContinuousTrainer`` on loop, scan and pipelined with
+            colrel_fused on ``hopper_fused``, and on the loop with colrel on
+            ``hopper``.  Per engine: one uninterrupted 12-round run; a
+            trainer publishing every 4 rounds (``checkpoint.publish``) whose
+            params, server state, per-round loss/τ/delta_norm and generator
+            state are bitwise equal to it, while a ``SnapshotEvalLoop``
+            follows each snapshot in order and scores a held-out batch within
+            1e-6 of the same loss on the trainer's params; a trainer that runs
+            8 rounds and is dropped; and one rebuilt from seeds that calls
+            ``restore_latest`` + ``advance_stream`` and runs 4 rounds,
+            bitwise equal to rounds 9–12.  The async engine under Poisson(1.0)
+            delays (max_delay 8) in bursts of 4 bitwise equal to one 12-round
+            call.  Each kernel launched once a round on its backend and never
+            on the other.  Prints ms a round per engine and ms per publish and
+            per ``restore_training_state`` of the ResNet snapshot.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -118,8 +139,9 @@ ATOL, RTOL_F32, RTOL_BF16 = 1e-5, 1e-5, 2.0**-7
 PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
 
 # engines phase: the Fig. 6 channel at a coherence of a few rounds, so that
-# 20 rounds cross epochs of unequal length and chunk 4 leaves remainders
-ENGINE_ROUNDS, ENGINE_CHUNK = 20, 4
+# 12 rounds cross epochs of unequal length (6, 2 and 4) and chunk 4 leaves
+# remainders (20 rounds until the service phase came; cut for time)
+ENGINE_ROUNDS, ENGINE_CHUNK = 12, 4
 
 # bench phase: the registered scenarios it runs, and the model sizes the
 # JAX package recorded for them (BENCH_resnet20_cifar.json,
@@ -134,6 +156,9 @@ BENCH_KERNEL = {"hopper": "relay_mix_2d", "hopper_fused": "fused_aggregate_2d"}
 SPARSE_SCENARIOS = ("sample_sweep_smoke", "sample_sweep_n1e3", "sample_sweep_n1e4")
 SPARSE_CHECK_ATOL = 1e-5
 SPLIT_ROUNDS = 8
+# rounds of a scenario cut below its registered count for time: n1e3's
+# sparse OPT-α re-solve takes ~0.4 s a round on the host, over 8 passes
+SPARSE_ROUNDS = {"sample_sweep_n1e3": 8}
 
 # async phase: rounds of each AsyncRoundEngine run on ResNet-20/GN, and the
 # async bench scenario.  async_ttac_500 (500 rounds through four engine
@@ -142,6 +167,10 @@ SPLIT_ROUNDS = 8
 # this script near three minutes
 ASYNC_ROUNDS = 20
 ASYNC_SCENARIOS = ("async_smoke",)
+
+# service phase: rounds of each run, the publish interval (a burst), the
+# round after which a run crashes, and the publish/restore timing repeats
+SERVICE_ROUNDS, SERVICE_BURST, SERVICE_CRASH, SERVICE_REPS = 12, 4, 8, 5
 
 # NVIDIA's H100 SXM data sheet (dense rates, 700 W): device memory
 # rate and the f32 rate outside the tensor cores
@@ -793,6 +822,8 @@ def phase_sparse() -> dict:
     totals = dict.fromkeys(k.LAUNCHES, 0)
     for name in SPARSE_SCENARIOS:
         spec = scenarios.get_scenario(name)
+        if name in SPARSE_ROUNDS:
+            spec = dataclasses.replace(spec, rounds=SPARSE_ROUNDS[name])
         t0 = time.perf_counter()
         k.reset_launches()
         result = harness.run_scenario(spec)
@@ -993,6 +1024,180 @@ def phase_async() -> dict:
     return totals
 
 
+def phase_service() -> dict:
+    """The continuous-training service (``repro_torch.launch``) on ResNet-20/GN
+    at full width under the Fig. 6 channel with churn; see the module
+    docstring for the gates.  Returns each kernel's launches over the
+    phase."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import channels, checkpoint
+    from repro_torch.channels import PoissonDelays
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import cifar_like
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.kernels import relay_mix as k
+    from repro_torch.launch.serve import SnapshotEvalLoop
+    from repro_torch.launch.train import ContinuousTrainer
+    from repro_torch.models.resnet import init_resnet20, resnet20_loss
+
+    ds = cifar_like(N_TRAIN, seed=0)
+    parts = iid_partition(ds, N_CLIENTS, seed=0)
+    held = cifar_like(LOCAL_BATCH, seed=1)  # the eval loop's held-out batch
+    held_batch = {"images": held.inputs, "labels": held.labels}
+    held_dev = {key: torch.as_tensor(v, device="cuda") for key, v in held_batch.items()}
+
+    def loss_fn(params, batch):
+        return resnet20_loss(params, CONFIG, batch)
+
+    def trainer(strategy, backend, engine, ckpt_dir=None, publish_every=0, delays=None):
+        """A trainer rebuilt from seeds: model, stream, policy, generator."""
+        sim = FLSimulator(loss_fn, n_clients=N_CLIENTS, strategy=strategy,
+                          local_steps=LOCAL_STEPS, relay_backend=backend,
+                          server_opt=ServerOpt(momentum=0.9))
+        loader = FederatedLoader(ds, parts, seed=0)
+        t = ContinuousTrainer(
+            sim, schedule=fig6_schedule(), lr=LR, engine=engine, chunk=SERVICE_BURST,
+            policy=channels.AdaptiveOptAlpha(sweeps=40, warm_sweeps=12), delays=delays,
+            next_batch=lambda: loader.round_batch(LOCAL_STEPS, LOCAL_BATCH),
+            ckpt_dir=ckpt_dir, publish_every=publish_every, keep=0)
+        t.init(init_resnet20(0, CONFIG), torch.Generator(device="cuda").manual_seed(42))
+        return t
+
+    def run(t, rounds, tag, kernel, **kw):
+        """``t.run(rounds)`` with its launches counted from 0 and gated."""
+        torch.cuda.synchronize()
+        k.reset_launches()
+        t0 = time.perf_counter()
+        metrics = t.run(rounds, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / rounds
+        launches = dict(k.LAUNCHES)
+        want = {name: rounds if name == kernel else 0 for name in launches}
+        if launches != want:
+            fail(f"service {tag}: kernel launches {launches}, expected {want}")
+        if metrics["loss"].shape != (rounds,) or not np.isfinite(metrics["loss"]).all():
+            fail(f"service {tag}: losses {metrics['loss']} not {rounds} finite values")
+        for kn in totals:
+            totals[kn] += launches[kn]
+        return metrics, ms
+
+    def same_state(a, b, a_metrics, b_metrics, what):
+        for part in ("params", "server_state"):
+            if not _bitwise_equal(getattr(a, part), getattr(b, part)):
+                fail(f"service {what}: {part} differ")
+        for key in b_metrics:
+            if not np.array_equal(a_metrics[key], b_metrics[key]):
+                fail(f"service {what}: per-round {key} differ")
+        if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+            fail(f"service {what}: generator state differs")
+
+    totals = dict.fromkeys(k.LAUNCHES, 0)
+    work = tempfile.mkdtemp(prefix="service_", dir=os.path.join(ROOT, "build"))
+    try:
+        for strategy, backend, kernel, engines in (
+                ("colrel_fused", "hopper_fused", "fused_aggregate_2d",
+                 ("loop", "scan", "pipelined")),
+                ("colrel", "hopper", "relay_mix_2d", ("loop",))):
+            for engine in engines:
+                tag = f"{strategy}/{backend} {engine}"
+                ref = trainer(strategy, backend, engine)
+                ref_m, ms = run(ref, SERVICE_ROUNDS, f"{tag} uninterrupted", kernel)
+
+                # bursts published every SERVICE_BURST rounds, followed by
+                # the eval loop as each snapshot lands
+                d = os.path.join(work, f"{strategy}_{engine}")
+                loop = SnapshotEvalLoop(d, params_like=init_resnet20(1, CONFIG),
+                                        eval_fn=loss_fn)
+                burst = trainer(strategy, backend, engine, d, SERVICE_BURST)
+                seen, worst = [], 0.0
+
+                def on_publish(path, rnd, burst=burst, loop=loop, seen=seen):
+                    nonlocal worst
+                    if not loop.poll() or loop.round != rnd:
+                        fail(f"service {tag}: eval loop missed the round-{rnd} snapshot")
+                    got = loop.eval_batch(held_batch)
+                    want = float(loss_fn(burst.params, held_dev))
+                    worst = max(worst, abs(got - want))
+                    seen.append(rnd)
+
+                burst_m, burst_ms = run(burst, SERVICE_ROUNDS, f"{tag} bursts", kernel,
+                                        on_publish=on_publish)
+                same_state(burst, ref, burst_m, ref_m, f"{tag} bursts vs one run")
+                want_rounds = list(range(SERVICE_BURST, SERVICE_ROUNDS + 1, SERVICE_BURST))
+                if seen != want_rounds or worst > 1e-6:
+                    fail(f"service {tag}: eval loop saw rounds {seen} (expected "
+                         f"{want_rounds}), max |Δloss| {worst}")
+
+                # a crash after the round-SERVICE_CRASH snapshot; a trainer
+                # rebuilt from seeds restores it, replays the stream, runs on
+                d2 = os.path.join(work, f"{strategy}_{engine}_crashed")
+                run(trainer(strategy, backend, engine, d2, SERVICE_BURST), SERVICE_CRASH,
+                    f"{tag} crashed run", kernel)
+                resumed = trainer(strategy, backend, engine, d2, SERVICE_BURST)
+                if not resumed.restore_latest() or resumed.round != SERVICE_CRASH:
+                    fail(f"service {tag}: restore_latest gave round {resumed.round}")
+                resumed.advance_stream()
+                res_m, _ = run(resumed, SERVICE_ROUNDS - SERVICE_CRASH, f"{tag} resumed",
+                               kernel)
+                same_state(resumed, ref, res_m,
+                           {key: v[SERVICE_CRASH:] for key, v in ref_m.items()},
+                           f"{tag} resumed vs rounds {SERVICE_CRASH + 1}–{SERVICE_ROUNDS}")
+                print(f"service {tag}: {ms:.3f} ms a round uninterrupted, {burst_ms:.3f} "
+                      f"with a publish every {SERVICE_BURST}; bursts and the resume from "
+                      f"round {SERVICE_CRASH} bitwise equal to one {SERVICE_ROUNDS}-round "
+                      f"run (params, server state, loss/τ/delta_norm, generator state); "
+                      f"eval loop followed rounds {seen}, max |Δloss| {worst:.3g}")
+
+        # the async engine keeps its arrival buffer across bursts
+        runs = []
+        for every in (0, SERVICE_BURST):
+            t = trainer("colrel_fused", "hopper_fused", "async", publish_every=every,
+                        delays=PoissonDelays(N_CLIENTS, rate=1.0, max_delay=8, seed=11))
+            m, ms = run(t, SERVICE_ROUNDS, f"async publish_every {every}",
+                        "fused_aggregate_2d")
+            runs.append((t, m, ms))
+        same_state(runs[1][0], runs[0][0], runs[1][1], runs[0][1],
+                   "async bursts vs one call")
+        print(f"service colrel_fused/hopper_fused async Poisson(1.0) max_delay 8: "
+              f"{runs[0][2]:.3f} ms a round in one call, {runs[1][2]:.3f} in bursts of "
+              f"{SERVICE_BURST}; bitwise equal (params, server state, loss/τ/delta_norm, "
+              f"generator state)")
+
+        # publish and restore of the ResNet-20/GN snapshot (params + momentum)
+        t = ref
+        pub_ms, res_ms = [], []
+        d = os.path.join(work, "timing")
+        for i in range(SERVICE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = checkpoint.publish(d, params=t.params, server_state=t.server_state,
+                                      generator=t.generator, round=i, keep=2)
+            pub_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            params, state, gen, _ = checkpoint.restore_training_state(
+                path, params_like=t.params, server_state_like=t.server_state)
+            torch.cuda.synchronize()
+            res_ms.append((time.perf_counter() - t0) * 1e3)
+            if not (_bitwise_equal(params, t.params) and _bitwise_equal(state, t.server_state)
+                    and torch.equal(gen.get_state(), t.generator.get_state())):
+                fail("service: restore_training_state is not the published state")
+        size = os.path.getsize(path)
+        print(f"service checkpoint ({size} bytes, params + server momentum + generator): "
+              f"publish {np.median(pub_ms):.3f} ms, restore_training_state "
+              f"{np.median(res_ms):.3f} ms (median of {SERVICE_REPS}; all {pub_ms} / "
+              f"{res_ms})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return totals
+
+
 def main() -> int:
     phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1006,7 +1211,10 @@ def main() -> int:
     sparse_launches = phase_sparse()
     t_async = time.perf_counter()
     async_launches = phase_async()
-    print(f"phases: sparse {t_async - t_sparse:.1f} s, async {time.perf_counter() - t_async:.1f} s")
+    t_service = time.perf_counter()
+    service_launches = phase_service()
+    print(f"phases: sparse {t_async - t_sparse:.1f} s, async {t_service - t_async:.1f} s, "
+          f"service {time.perf_counter() - t_service:.1f} s")
     launches = {"relay_mix_2d": runs["colrel/hopper"]["launches"]["relay_mix_2d"],
                 "fused_aggregate_2d":
                     runs["colrel_fused/hopper_fused"]["launches"]["fused_aggregate_2d"]}
@@ -1022,16 +1230,18 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
             "launches": launches[name],
             # each path's own count, from zero just before it: the main
-            # phase's 5 rounds, the engines phase's four runs of 20, the
+            # phase's 5 rounds, the engines phase's four runs of 12, the
             # bench phase's kernel checks (cold and warm passes), the sample
-            # sweeps' engines (cold and warm, the segment reduce) and the
+            # sweeps' engines (cold and warm, the segment reduce), the
             # async engine's and its loops' rounds on the kernel backends
+            # and the service phase's trainer rounds
             "launches_by_path": {
                 "main": launches[name],
                 "engines": engine_launches[name],
                 "bench": bench_launches[name],
                 "sparse": sparse_launches[name],
                 "async": async_launches[name],
+                "service": service_launches[name],
             },
             "max_abs_err": kern["main_err"][e],
             "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL_F32},

@@ -7,3 +7,7 @@ CONFIG = ModelConfig(
     n_layers=20, d_model=64, vocab=10,
     source="paper §V (He et al. CIFAR ResNet-20)",
 )
+
+
+def reduced() -> ModelConfig:
+    return CONFIG  # already laptop-scale

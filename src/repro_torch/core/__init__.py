@@ -6,3 +6,6 @@
   relay         local consensus Δx̃ = A·Δx + fused relay∘aggregate path
   aggregation   PS strategies (colrel / fedavg variants) + server momentum
 """
+from repro_torch.core import aggregation, connectivity, opt_alpha, relay, topology
+
+__all__ = ["aggregation", "connectivity", "opt_alpha", "relay", "topology"]

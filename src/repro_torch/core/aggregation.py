@@ -48,6 +48,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.utils import (
     stacked_ravel,
     tree_axpy,
+    tree_flatten,
     tree_map,
     tree_scale,
     tree_unravel,
@@ -66,6 +67,64 @@ def active_weight(active, *, n: int):
         return 1.0 / n
     active = torch.as_tensor(active, dtype=torch.float32)
     return 1.0 / torch.clamp(active.sum(), min=1.0)
+
+
+# --------------------------------------------------------------------------
+# Pytree increments: the stacked per-client updates (leaves (n, ...)) →
+# the increment pytree, each leaf reduced over the client dim in f32
+# --------------------------------------------------------------------------
+
+
+def _tree_device(tree) -> torch.device:
+    leaves = tree_flatten(tree)[0]
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
+def _reduce_leaves(coeffs, stacked):
+    return tree_map(
+        lambda leaf: torch.tensordot(coeffs, leaf.float(), dims=([0], [0])), stacked)
+
+
+def colrel_increment(A, tau, stacked_updates, *, n: int, fused: bool = True,
+                     active=None):
+    """ColRel PS increment.  ``fused=True`` is the optimized path (identical
+    math); ``fused=False`` materializes Δx̃ per relay (paper-faithful).  An
+    :class:`~repro_torch.core.relay.EdgeRelay` is densified."""
+    dev = _tree_device(stacked_updates)
+    A = relay_lib.as_relay_operand(A, n=n, device=dev)
+    w = active_weight(None if active is None else _f32(active, dev), n=n)
+    tau = _f32(tau, dev)
+    if active is not None:
+        A = relay_lib.mask_relay_matrix(A, _f32(active, dev))
+        tau = tau * _f32(active, dev)
+    if fused:
+        return relay_lib.fused_aggregate(A, tau, stacked_updates, w=w)
+    relayed = relay_lib.relay(A, stacked_updates)
+    return relay_lib.masked_aggregate(tau, relayed, w=w)
+
+
+def fedavg_blind_increment(tau, stacked_updates, *, n: int, active=None):
+    dev = _tree_device(stacked_updates)
+    w = active_weight(None if active is None else _f32(active, dev), n=n)
+    tau = _f32(tau, dev)
+    if active is not None:
+        tau = tau * _f32(active, dev)
+    return relay_lib.masked_aggregate(tau, stacked_updates, w=w)
+
+
+def fedavg_nonblind_increment(tau, stacked_updates, *, active=None):
+    dev = _tree_device(stacked_updates)
+    tau = _f32(tau, dev)
+    if active is not None:
+        tau = tau * _f32(active, dev)
+    return _reduce_leaves(tau / torch.clamp(tau.sum(), min=1.0), stacked_updates)
+
+
+def no_dropout_increment(stacked_updates, *, n: int, active=None):
+    if active is None:
+        return tree_map(lambda leaf: leaf.float().mean(dim=0), stacked_updates)
+    a = _f32(active, _tree_device(stacked_updates))
+    return _reduce_leaves(a / torch.clamp(a.sum(), min=1.0), stacked_updates)
 
 
 # --------------------------------------------------------------------------

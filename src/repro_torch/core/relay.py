@@ -297,3 +297,15 @@ def masked_aggregate(tau, stacked_relayed, *, w):
         return torch.tensordot(w * t, leaf.float(), dims=([0], [0]))
 
     return tree_map(reduce, stacked_relayed)
+
+
+def neighbor_support(A, adj) -> bool:
+    """True iff A is supported on the closed neighborhoods of ``adj`` —
+    i.e. no client uses an update it could never have received over D2D."""
+    from repro_torch.core import topology
+
+    m = topology.closed_mask(np.asarray(adj))
+    if isinstance(A, torch.Tensor):
+        A = A.detach().cpu().numpy()
+    A = np.asarray(A)
+    return bool(np.all(A[~m] == 0.0))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils import tree_map
+
 
 def relay_mix_2d(A: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """Δ̃ = A·Δ, summed in f32 over the origins in ascending order, returned
@@ -32,3 +34,16 @@ def fused_aggregate_2d(coeffs: torch.Tensor, delta: torch.Tensor) -> torch.Tenso
     for j in range(d.shape[0]):
         out = torch.addcmul(out, c[j], d[j])
     return out.to(delta.dtype)
+
+
+def relay_mix_pytree(A, stacked):
+    """Δ̃ = A·Δ on every leaf of a stacked pytree (leaves (n, ...)): each leaf
+    through :func:`relay_mix_2d` on its (n, prod(rest)) view, so in the same
+    order, returned in the leaf's dtype."""
+
+    def mix(leaf):
+        A_l = torch.as_tensor(A, dtype=torch.float32, device=leaf.device)
+        out = relay_mix_2d(A_l, leaf.reshape(leaf.shape[0], -1))
+        return out.reshape((A_l.shape[0],) + tuple(leaf.shape[1:]))
+
+    return tree_map(mix, stacked)

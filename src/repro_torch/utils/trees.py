@@ -77,6 +77,10 @@ def tree_map(fn: Callable, tree, *rest):
     )
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
 
@@ -90,6 +94,17 @@ def tree_axpy(s, x, y):
     return tree_map(lambda xe, ye: ye + s * xe, x, y)
 
 
+def tree_dot(a, b) -> torch.Tensor:
+    """Σ over leaves of Σ x·y, in f32: each leaf's sum, then the leaves
+    added to 0 in flatten order, as the JAX package's ``tree.reduce``."""
+    leaves = tree_flatten(tree_map(lambda x, y: torch.sum(x.float() * y.float()), a, b))[0]
+    return sum(leaves, torch.tensor(0.0))
+
+
+def tree_norm(a) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a))
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 
@@ -97,6 +112,10 @@ def tree_zeros_like(a):
 def tree_size(a) -> int:
     """Total number of scalar parameters in the pytree."""
     return sum(int(x.numel()) for x in tree_flatten(a)[0])
+
+
+def tree_cast(a, dtype: torch.dtype):
+    return tree_map(lambda x: x.to(dtype), a)
 
 
 def from_jax_params(tree, *, device=None):

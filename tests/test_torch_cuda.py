@@ -378,3 +378,115 @@ def test_async_delay0_bitwise_equal_to_loop_on_card(dev, strategy):
     for name in ("loss", "tau", "delta_norm"):
         assert torch.equal(am[name], lm[name])
     assert torch.equal(ag.get_state(), lg.get_state())
+
+
+# -- the continuous-training service on the card ------------------------------
+
+
+@pytest.mark.parametrize("engine", ["loop", "scan", "pipelined"])
+@pytest.mark.parametrize("strategy,backend", [("colrel", "hopper"),
+                                              ("colrel_fused", "hopper_fused")])
+def test_trainer_publish_and_resume_bitwise_on_card(dev, tmp_path, strategy, backend, engine):
+    """ContinuousTrainer on a kernel backend under churn, fading and drift:
+    bursts of 4 published on the card equal one uninterrupted run, and a
+    trainer rebuilt from seeds that restores the round-8 snapshot (params
+    and the CUDA generator back on the card) and replays the stream equals
+    its rounds 9–12; one kernel launch a round."""
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.launch.serve import SnapshotEvalLoop
+    from repro_torch.launch.train import ContinuousTrainer
+
+    n, rounds, dim = 6, 12, 4097
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    def trainer(**kw):
+        rng = np.random.default_rng(42)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy=strategy, local_steps=2,
+                          relay_backend=backend, server_opt=ServerOpt(momentum=0.9))
+        t = ContinuousTrainer(
+            sim, schedule=_churn_schedule(n), lr=0.1, engine=engine, chunk=4,
+            policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+            next_batch=lambda: {"c": rng.standard_normal((n, 2, 4, dim)).astype(np.float32)},
+            **kw)
+        t.init({"x": torch.ones(dim, device=dev)}, torch.Generator(device=dev).manual_seed(7))
+        return t
+
+    d = str(tmp_path / "ckpts")
+    ref = trainer()
+    ref_m = ref.run(rounds)
+    k.reset_launches()
+    burst = trainer(ckpt_dir=d, publish_every=4, keep=0)
+    burst_m = burst.run(rounds)
+    torch.cuda.synchronize()
+    kernel = "relay_mix_2d" if backend == "hopper" else "fused_aggregate_2d"
+    assert dict(k.LAUNCHES) == {name: rounds if name == kernel else 0 for name in k.LAUNCHES}
+    assert torch.equal(burst.params["x"], ref.params["x"])
+    assert torch.equal(burst.server_state["x"], ref.server_state["x"])
+    assert all(np.array_equal(burst_m[key], ref_m[key]) for key in ref_m)
+    assert burst.generator.device.type == dev.type
+    assert torch.equal(burst.generator.get_state(), ref.generator.get_state())
+
+    # a second trainer runs 8 rounds and is dropped (a crash); a third,
+    # rebuilt from seeds, restores its round-8 snapshot and runs on
+    d2 = str(tmp_path / "crashed")
+    trainer(ckpt_dir=d2, publish_every=4).run(8)
+    resumed = trainer(ckpt_dir=d2, publish_every=4)
+    assert resumed.restore_latest() and resumed.round == 8
+    assert resumed.params["x"].device.type == dev.type
+    resumed.advance_stream()
+    got_m = resumed.run(rounds - 8)
+    assert torch.equal(resumed.params["x"], ref.params["x"])
+    assert torch.equal(resumed.server_state["x"], ref.server_state["x"])
+    assert all(np.array_equal(got_m[key], ref_m[key][8:]) for key in ref_m)
+    assert torch.equal(resumed.generator.get_state(), ref.generator.get_state())
+
+    # the eval loop on the card loads the newest snapshot: the trainer's params
+    loop = SnapshotEvalLoop(d, params_like={"x": torch.zeros(dim, device=dev)},
+                            eval_fn=loss_fn)
+    assert loop.poll() and loop.round == rounds
+    batch = {"c": np.zeros((n, 2, 4, dim), np.float32)}
+    want = float(loss_fn(ref.params, {"c": torch.zeros(n, 2, 4, dim, device=dev)}))
+    assert abs(loop.eval_batch(batch) - want) <= 1e-6
+
+
+def test_async_trainer_bursts_equal_one_call_on_card(dev):
+    """The async engine in bursts of 4 on hopper_fused under Poisson(1.0)
+    delays equals one uninterrupted 12-round call, bitwise."""
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.channels import PoissonDelays
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.launch.train import ContinuousTrainer
+
+    n, rounds, dim = 6, 12, 4097
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    def run(publish_every):
+        rng = np.random.default_rng(42)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy="colrel_fused", local_steps=2,
+                          relay_backend="hopper_fused", server_opt=ServerOpt(momentum=0.9))
+        t = ContinuousTrainer(
+            sim, schedule=_churn_schedule(n), lr=0.1, engine="async",
+            delays=PoissonDelays(n, rate=1.0, max_delay=8, seed=11),
+            policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+            next_batch=lambda: {"c": rng.standard_normal((n, 2, 4, dim)).astype(np.float32)},
+            publish_every=publish_every)
+        t.init({"x": torch.ones(dim, device=dev)}, torch.Generator(device=dev).manual_seed(7))
+        return t, t.run(rounds)
+
+    (one, m1), (burst, m2) = run(0), run(4)
+    assert torch.equal(one.params["x"], burst.params["x"])
+    assert all(np.array_equal(m1[key], m2[key]) for key in m1)
+    assert torch.equal(one.generator.get_state(), burst.generator.get_state())

@@ -11,7 +11,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+              + [ROOT / "chip_smoke.py"])
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -39,6 +40,28 @@ def test_port_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == f"ok {len(MODULES)}"
     assert "repro_torch.fl.simulator" in MODULES and len(MODULES) >= 25
+
+
+_EACH_MODULE_FIRST = """
+import importlib, sys
+sys.path[:0] = [{src!r}]
+for mod in {modules!r}:
+    for name in [m for m in sys.modules if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    importlib.import_module(mod)
+print("ok")
+"""
+
+
+def test_each_module_imports_first_without_a_cycle():
+    """The package re-exports (core, fl, data, optim) must not make the
+    import order matter: each module imports cleanly as the first one."""
+    code = _EACH_MODULE_FIRST.format(src=str(ROOT / "src"), modules=MODULES)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -184,3 +184,22 @@ def test_pytree_wrappers_match_jax():
     for key in upd:
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-5)
         np.testing.assert_allclose(got_f[key].numpy(), np.asarray(want_f[key]), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_relay_mix_pytree_matches_jax(dtype):
+    from repro.kernels import ref as jax_ref
+    from repro_torch.kernels import ref
+    from repro_torch.utils import tree_flatten
+
+    n = 6
+    rng = np.random.default_rng(9)
+    A = (rng.standard_normal((n, n)) / np.sqrt(n)).astype(np.float32)
+    upd = {"w": rng.standard_normal((n, 4, 3)), "b": [rng.standard_normal((n, 9))]}
+    jupd = jax.tree.map(lambda x: jnp.asarray(x, JNP[dtype]), upd)
+    tupd = jax.tree.map(lambda x: _to_torch(np.asarray(x)), jupd)
+    want = jax_ref.relay_mix_pytree(jnp.asarray(A), jupd)
+    got = ref.relay_mix_pytree(A, tupd)
+    for g, w in zip(tree_flatten(got)[0], jax.tree.leaves(want)):
+        assert g.dtype == TORCH[dtype] and tuple(g.shape) == w.shape
+        _assert_close(g, w, dtype)

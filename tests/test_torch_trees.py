@@ -124,3 +124,48 @@ def test_namedtuples_and_none_keep_their_structure_like_jax():
     assert np.array_equal(doubled["p"].a, 2 * np.arange(3.0))
     want = jax.tree.map(lambda x: 2 * x, tree)
     assert type(want["p"]) is Pair and want["p"].b is None
+
+
+def _mixed_tree(rng):
+    return {
+        "w": rng.standard_normal((3, 5)).astype(np.float32),
+        "blocks": [rng.standard_normal((7,)).astype(np.float32),
+                   {"b": rng.standard_normal((2, 2)).astype(np.float32)}],
+    }
+
+
+@pytest.mark.parametrize("op", ["tree_add", "tree_dot", "tree_norm", "tree_cast"])
+def test_tree_arithmetic_matches_jax(op):
+    import repro.utils as jax_utils
+    import repro_torch.utils as utils
+
+    rng = np.random.default_rng(4)
+    a, b = _mixed_tree(rng), _mixed_tree(rng)
+    ta, tb = from_jax_params(a), from_jax_params(b)
+    ja, jb = jax.tree.map(jnp.asarray, a), jax.tree.map(jnp.asarray, b)
+    if op == "tree_add":
+        got, want = utils.tree_add(ta, tb), jax_utils.tree_add(ja, jb)
+    elif op == "tree_dot":
+        got, want = utils.tree_dot(ta, tb), jax_utils.tree_dot(ja, jb)
+    elif op == "tree_norm":
+        got, want = utils.tree_norm(ta), jax_utils.tree_norm(ja)
+    else:
+        got = utils.tree_cast(ta, torch.bfloat16)
+        want = jax_utils.tree_cast(ja, jnp.bfloat16)
+    got_leaves, want_leaves = tree_flatten(got)[0], jax.tree.leaves(want)
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        assert g.dtype == (torch.bfloat16 if op == "tree_cast" else torch.float32)
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_tree_dot_and_norm_match_raveled():
+    rng = np.random.default_rng(5)
+    a, b = from_jax_params(_mixed_tree(rng)), from_jax_params(_mixed_tree(rng))
+    from repro_torch.utils import tree_dot, tree_norm
+
+    fa, fb = tree_ravel(a)[0], tree_ravel(b)[0]
+    assert tree_dot(a, b).dtype == torch.float32
+    np.testing.assert_allclose(float(tree_dot(a, b)), float(fa @ fb), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(tree_norm(a)), float(fa.norm()), rtol=1e-6)
