@@ -14,9 +14,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
             base address is off 16 bytes}, checks that each case's two
             calls are bitwise equal and relay_mix_2d's backward, then times
             each kernel, its plain version and one PyTorch call for the same
-            function, beside the card's bound for the work; prints the fused
-            kernel's launch plan (vector bytes, grid, resident blocks an SM)
-            at the main shape.
+            function, beside the card's bound for the work, at the main
+            shape, at (8, 10⁷) and at mesh_corr_500's (10, 2,410); prints
+            the fused kernel's launch plan (vector bytes, grid, resident
+            blocks an SM) at each.
 4. main     ColRel rounds of ResNet-20/GN at full width (D = 272,282) for
             n = 10 clients through ``FLSimulator``, four times on the same
             τ and batches: colrel on ``hopper`` and on ``einsum``,
@@ -98,6 +99,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
             call.  Each kernel launched once a round on its backend and never
             on the other.  Prints ms a round per engine and ms per publish and
             per ``restore_training_state`` of the ResNet snapshot.
+10. distributed  the distributed round steps (``repro_torch.fl.distributed``)
+            on ResNet-20/GN at full width (n = 10, T = 2, the main phase's
+            batch): ``build_round_step`` faithful on ``hopper`` and
+            ``einsum``, fused on ``hopper_fused`` and ``einsum``,
+            ``build_scan_round_step`` and ``build_fused_scan_round_step`` on
+            ``hopper_fused``, 3 rounds each on one τ stream; the T = 1
+            weighted-loss step and the T = 1 per-client step (``hopper``).
+            Gates: each kernel run within PARAM_ATOL/LOSS_ATOL of einsum;
+            the scan and fused scan steps bitwise equal to the per-round
+            step (the fused scan's generator equal to the host draws'); the
+            weighted-loss step within 1e-5 of the per-client step, with no
+            launch.  Then ``init_process_group("nccl", world_size=1)`` and
+            ``ShardedScanEngine`` 8 rounds under the Fig. 6 channel with
+            churn at lr 1e-3: gather on ``hopper_fused`` bitwise equal to the
+            single-device fused engine (the fused scan step an epoch), ring
+            and shard="d" on ``einsum`` within the harness tolerance, each
+            with the fused engine's generator state and one call an epoch;
+            the single-device loop bitwise equal to the fused engine.  Then
+            the bench harness on ``mesh_corr_500`` (100 of its 500 rounds)
+            with a ``hopper_fused`` kernel check: the three mesh steps
+            bitwise equal, the check ≤ 1e-5, 2 × rounds fused launches.
+            Each kernel launched once a round on its backend and never
+            elsewhere.  Prints ms a round per run and the world size;
+            multi-rank exchange is not measured on one card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor the JAX package.
@@ -127,6 +152,9 @@ LARGE_SHAPE = (8, 10_000_000)  # the JAX package's relay_sweep_1e7 size
 # D = 698): n past the fused kernel's 1,024 shared-memory coefficients
 # (kCoeffChunk), one past it, and the sweep's top
 SPARSE_SHAPES = ((1_000, 698), (1_025, 698), (10_000, 698))
+# the fused kernel in mesh_corr_500's kernel check: n = 10 clients of its
+# MLP (dim 64, width 32: D = 64·32 + 32 + 32·10 + 10)
+MESH_SHAPE = (10, 2_410)
 
 # kernel sweep and tolerances: f32 atol 1e-5 + rtol 1e-5 (sum order differs);
 # bf16 one bf16 ulp of the output (rtol 2^-7) + the same f32 atol.  Besides
@@ -134,7 +162,7 @@ SPARSE_SHAPES = ((1_000, 698), (1_025, 698), (10_000, 698))
 # n across the fused kernel's origin chunks (6, 12 and 24 origins for 16-,
 # 8- and 4- or 2-byte loads; 16 for a chunk of 16)
 SWEEP_N = (1, 7, 10, 12, 13, 15, 16, 17, 24, 25, 64, 128, 300)
-SWEEP_D = (1, 3, 100, 4097, 5000, RESNET20_D, RESNET20_D + 1)
+SWEEP_D = (1, 3, 100, MESH_SHAPE[1], 4097, 5000, RESNET20_D, RESNET20_D + 1)
 ATOL, RTOL_F32, RTOL_BF16 = 1e-5, 1e-5, 2.0**-7
 PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
 
@@ -171,6 +199,15 @@ ASYNC_SCENARIOS = ("async_smoke",)
 # service phase: rounds of each run, the publish interval (a burst), the
 # round after which a run crashes, and the publish/restore timing repeats
 SERVICE_ROUNDS, SERVICE_BURST, SERVICE_CRASH, SERVICE_REPS = 12, 4, 8, 5
+
+# distributed phase: rounds of each single-device step run, rounds of each
+# sharded engine run (the Fig. 6 channel: epochs of 6 and 2 rounds), and
+# mesh_corr_500's rounds (500 registered; cut for time, about 8 passes).
+# The sharded runs train at lr 1e-3, as the repo's ResNet comparisons across
+# summation orders do: the ring sums in another order than the dense
+# backends, and at lr 0.05 a ResNet trajectory grows a 3e-8 difference
+# after one round past 1e-3 within 8 rounds (CPU rehearsal)
+DIST_ROUNDS, SHARD_ROUNDS, MESH_ROUNDS, SHARD_LR = 3, 8, 100, 1e-3
 
 # NVIDIA's H100 SXM data sheet (dense rates, 700 W): device memory
 # rate and the f32 rate outside the tensor cores
@@ -279,7 +316,7 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {("mix", "f32"): 0.0, ("mix", "bf16"): 0.0,
              ("fused", "f32"): 0.0, ("fused", "bf16"): 0.0}
-    main_err = {}
+    main_err, mesh_err = {}, {}
     cases = 0
     # information, not a gate: f32 cases bitwise equal to the plain version
     # (the kernels' order) and to the library product (cuBLAS's order)
@@ -316,6 +353,8 @@ def phase_kernels() -> dict:
                     worst["fused", tag] = max(worst["fused", tag], e_fused)
                     if (n, D) == MAIN_SHAPE and tag == "f32" and not layout:
                         main_err = {"mix": e_mix, "fused": e_fused}
+                    if (n, D) == MESH_SHAPE and tag == "f32" and not layout:
+                        mesh_err = {"mix": e_mix, "fused": e_fused}
                     cases += 2
     torch.cuda.synchronize()
     print(f"kernels: {cases} cases within tolerance, each call bitwise repeatable; max |Δ| "
@@ -344,14 +383,14 @@ def phase_kernels() -> dict:
 
     # times: kernel, plain version, one PyTorch call; f32 as on the main path
     timing = {"relay_mix_2d": {}, "fused_aggregate_2d": {}}
-    for label, (n, D) in (("main", MAIN_SHAPE), ("large", LARGE_SHAPE)):
+    for label, (n, D) in (("main", MAIN_SHAPE), ("large", LARGE_SHAPE), ("mesh", MESH_SHAPE)):
         # rotate over enough Δ copies that the working set exceeds 2× L2,
         # so each call finds Δ in device memory, as the round does
         copies = max(1, math.ceil(2 * L2_BYTES / (4 * n * D)))
         A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
         c = torch.randn(n, generator=gen, device=dev) / math.sqrt(n)
         ds = [torch.randn(n, D, generator=gen, device=dev) for _ in range(copies)]
-        reps = 200 if label == "main" else 40
+        reps = 40 if label == "large" else 200
         mix_args = [(A, d) for d in ds]
         fused_args = [(c, d) for d in ds]
         rows = {
@@ -423,7 +462,7 @@ def phase_kernels() -> dict:
               + json.dumps({key: v for key, v in t.items() if key != "shape"}))
         del ds, args
     torch.cuda.empty_cache()
-    return {"worst": worst, "main_err": main_err, "timing": timing}
+    return {"worst": worst, "main_err": main_err, "mesh_err": mesh_err, "timing": timing}
 
 
 def profile_round(sim, params, state, batch, lr) -> None:
@@ -1198,6 +1237,251 @@ def phase_service() -> dict:
     return totals
 
 
+def phase_distributed() -> dict:
+    """The distributed round steps (``repro_torch.fl.distributed``), the
+    sharded engine over an NCCL world of one rank, and the mesh bench
+    scenario; see the module docstring for the gates.  Returns each
+    kernel's launches over the phase."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import channels
+    from repro_torch.bench import harness, report, scenarios
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.core import connectivity, opt_alpha, topology
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import cifar_like
+    from repro_torch.fl.distributed import (
+        build_fused_scan_round_step,
+        build_round_step,
+        build_scan_round_step,
+        build_sharded_scan_round_step,
+    )
+    from repro_torch.fl.engine import ShardedScanEngine
+    from repro_torch.kernels import relay_mix as k
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.models.resnet import init_resnet20, resnet20_loss
+
+    ds = cifar_like(N_TRAIN, seed=0)
+    parts = iid_partition(ds, N_CLIENTS, seed=0)
+    p = connectivity.paper_heterogeneous().p
+    A = opt_alpha.optimize(p, topology.ring(N_CLIENTS, k=1), sweeps=50).A
+    p_dev = torch.as_tensor(p, dtype=torch.float32, device="cuda")
+
+    def loss_fn(params, batch):
+        return resnet20_loss(params, CONFIG, batch)
+
+    loader = FederatedLoader(ds, parts, seed=0)
+    batches = [loader.round_batch(LOCAL_STEPS, LOCAL_BATCH) for _ in range(DIST_ROUNDS)]
+    stacked = {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+    host_gen = torch.Generator(device="cuda").manual_seed(42)
+    taus = [torch.bernoulli(p_dev, generator=host_gen) for _ in range(DIST_ROUNDS)]
+    kw = dict(n_clients=N_CLIENTS, local_steps=LOCAL_STEPS)
+    totals = dict.fromkeys(k.LAUNCHES, 0)
+
+    def timed(tag, fn, rounds, want):
+        """Run ``fn()`` from zero counts; check its launches against ``want``
+        (kernel → launches a round) and print its ms a round."""
+        torch.cuda.synchronize()
+        k.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / rounds
+        launches = dict(k.LAUNCHES)
+        expect = {kn: want.get(kn, 0) * rounds for kn in launches}
+        if launches != expect:
+            fail(f"distributed {tag}: kernel launches {launches}, expected {expect}")
+        for kn in totals:
+            totals[kn] += launches[kn]
+        print(f"distributed {tag}: {ms:.3f} ms a round over {rounds} rounds (the first "
+              f"includes warm-up); launches {launches}")
+        return out
+
+    def per_round(step, params, rounds_batches, round_taus):
+        losses = []
+        for batch, tau in zip(rounds_batches, round_taus):
+            params, _, loss = step(params, None, batch, tau, LR)
+            losses.append(loss)
+        return params, torch.stack(losses)
+
+    # single device: the per-round step in both relay modes on each kernel
+    # and on einsum, then the epoch steps on hopper_fused
+    params0 = init_resnet20(0, CONFIG)
+    runs = {}
+    for mode, backend, kernel in (("faithful", "hopper", "relay_mix_2d"),
+                                  ("faithful", "einsum", None),
+                                  ("fused", "hopper_fused", "fused_aggregate_2d"),
+                                  ("fused", "einsum", None)):
+        step = build_round_step(loss_fn, A=A, relay_mode=mode, relay_backend=backend, **kw)
+        runs[mode, backend] = timed(f"build_round_step {mode}/{backend}",
+                                    lambda step=step: per_round(step, params0, batches, taus),
+                                    DIST_ROUNDS, {kernel: 1} if kernel else {})
+    for mode, backend in (("faithful", "hopper"), ("fused", "hopper_fused")):
+        (pk, lk), (pe, le) = runs[mode, backend], runs[mode, "einsum"]
+        dp = max((x - y).abs().max().item() for x, y in zip(_leaves(pk), _leaves(pe)))
+        dl = (lk - le).abs().max().item()
+        print(f"distributed {mode}/{backend} vs {mode}/einsum: max |Δparam| {dp:.3g}, "
+              f"max |Δloss| {dl:.3g} after {DIST_ROUNDS} rounds")
+        if not (math.isfinite(dp) and dp <= PARAM_ATOL and dl <= LOSS_ATOL):
+            fail(f"distributed {mode}/{backend} disagrees with einsum: {dp} {dl}")
+    ref_p, ref_l = runs["fused", "hopper_fused"]
+    fused_kw = dict(relay_mode="fused", relay_backend="hopper_fused", **kw)
+    scan = build_scan_round_step(loss_fn, **fused_kw)
+    sp, _, sl = timed("build_scan_round_step fused/hopper_fused",
+                      lambda: scan(params0, None, stacked, torch.stack(taus), LR, A=A),
+                      DIST_ROUNDS, {"fused_aggregate_2d": 1})
+    fused = build_fused_scan_round_step(loss_fn, **fused_kw)
+    gen, fp, _, fl = timed(
+        "build_fused_scan_round_step fused/hopper_fused",
+        lambda: fused(torch.Generator(device="cuda").manual_seed(42), params0, None,
+                      stacked, p, LR, A=A),
+        DIST_ROUNDS, {"fused_aggregate_2d": 1})
+    if not (_bitwise_equal(sp, ref_p) and torch.equal(sl, ref_l)):
+        fail("distributed: the scan step differs from the per-round step")
+    if not (_bitwise_equal(fp, ref_p) and torch.equal(fl, ref_l)
+            and torch.equal(gen.get_state(), host_gen.get_state())):
+        fail("distributed: the fused scan step differs from host τ draws + the round step")
+    print(f"distributed: scan and fused scan steps bitwise equal to {DIST_ROUNDS} per-round "
+          "steps on the same τ (params, losses; the fused scan's generator state equal to "
+          "the host draws')")
+    batch1 = loader.round_batch(1, LOCAL_BATCH)
+    weighted = build_round_step(loss_fn, n_clients=N_CLIENTS, local_steps=1, A=A,
+                                relay_mode="fused", relay_backend="hopper_fused")
+    per_client = build_round_step(loss_fn, n_clients=N_CLIENTS, local_steps=1, A=A,
+                                  relay_mode="faithful", relay_backend="hopper")
+    wp, _, wl = timed("T = 1 weighted-loss step fused/hopper_fused",
+                      lambda: weighted(params0, None, batch1, taus[0], LR), 1, {})
+    cp, _, cl = timed("T = 1 per-client step faithful/hopper",
+                      lambda: per_client(params0, None, batch1, taus[0], LR), 1,
+                      {"relay_mix_2d": 1})
+    dp = max((x - y).abs().max().item() for x, y in zip(_leaves(wp), _leaves(cp)))
+    print(f"distributed T = 1: weighted-loss vs per-client max |Δparam| {dp:.3g}, "
+          f"|Δloss| {abs(float(wl) - float(cl)):.3g}")
+    if not (dp <= ATOL and abs(float(wl) - float(cl)) <= ATOL):
+        fail(f"distributed T = 1: weighted-loss step off the per-client step by {dp}")
+
+    # sharded: the engine over an NCCL world of one rank, against the
+    # single-device loop and fused engine on the same churned schedule
+    def walk(engine):
+        loader_ = FederatedLoader(ds, parts, seed=0)
+        policy = channels.AdaptiveOptAlpha(sweeps=40, warm_sweeps=12)
+        sched = fig6_schedule()
+        gen_ = torch.Generator(device="cuda").manual_seed(42)
+        params = init_resnet20(0, CONFIG)
+        next_batch = lambda: loader_.round_batch(LOCAL_STEPS, LOCAL_BATCH)  # noqa: E731
+        if not isinstance(engine, str):
+            params, _, metrics, gen_ = engine.run_schedule(
+                gen_, params, None, schedule=sched, rounds=SHARD_ROUNDS,
+                next_batch=next_batch, lr=SHARD_LR, policy=policy)
+            return params, metrics["loss"], gen_.get_state()
+        step = (build_round_step if engine == "loop" else build_fused_scan_round_step)(
+            loss_fn, **fused_kw)
+        losses = []
+        for seg in sched.segments(SHARD_ROUNDS):
+            A_seg = policy.relay_matrix(seg.state)
+            p_seg = torch.as_tensor(seg.p, dtype=torch.float32, device="cuda")
+            act = (None if seg.active is None else
+                   torch.as_tensor(seg.active, dtype=torch.float32, device="cuda"))
+            host = [next_batch() for _ in range(seg.n_rounds)]
+            if engine == "loop":
+                for b in host:
+                    tau = torch.bernoulli(p_seg, generator=gen_)
+                    params, _, loss = step(params, None, b, tau, SHARD_LR, A=A_seg,
+                                           active=act)
+                    losses.append(loss.reshape(1))
+            else:
+                seg_b = {key: np.stack([b[key] for b in host]) for key in host[0]}
+                gen_, params, _, seg_l = step(gen_, params, None, seg_b, p_seg, SHARD_LR,
+                                              A=A_seg, active=act)
+                losses.append(seg_l)
+        return params, torch.cat(losses), gen_.get_state()
+
+    segs = [s.n_rounds for s in fig6_schedule().segments(SHARD_ROUNDS)]
+    fused_ref = timed("single-device fused engine (fused scan step an epoch) hopper_fused",
+                      lambda: walk("fused"), SHARD_ROUNDS, {"fused_aggregate_2d": 1})
+    loop_ref = timed("single-device loop (round step, host τ) hopper_fused",
+                     lambda: walk("loop"), SHARD_ROUNDS, {"fused_aggregate_2d": 1})
+    if not (_bitwise_equal(loop_ref[0], fused_ref[0]) and torch.equal(loop_ref[1], fused_ref[1])
+            and torch.equal(loop_ref[2], fused_ref[2])):
+        fail("distributed: the single-device loop differs from the fused engine")
+    work = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{work}/store", world_size=1, rank=0)
+    try:
+        print(f"distributed sharded: world size {dist.get_world_size()} over NCCL "
+              f"(epochs {segs} under the Fig. 6 channel with churn); multi-rank exchange is "
+              "not measured on one card")
+        for tag, shard, exchange, backend in (("gather", "clients", "gather", "hopper_fused"),
+                                              ("ring", "clients", "ring", "einsum"),
+                                              ("d", "d", "gather", "einsum")):
+            mesh = make_client_mesh(axis="clients" if shard == "clients" else "model")
+            step = build_sharded_scan_round_step(
+                loss_fn, mesh=mesh, shard=shard, exchange=exchange, relay_mode="fused",
+                relay_backend=backend, **kw)
+            eng = ShardedScanEngine(step, mesh=mesh, shard=shard, prefetch="inline")
+            want = {"fused_aggregate_2d": 1} if backend == "hopper_fused" else {}
+            got = timed(f"ShardedScanEngine {tag} {shard}/{backend} (world size "
+                        f"{mesh.size})", lambda eng=eng: walk(eng), SHARD_ROUNDS, want)
+            if eng.dispatches != len(segs):
+                fail(f"distributed {tag}: {eng.dispatches} calls for {len(segs)} epochs")
+            if not torch.equal(got[2], fused_ref[2]):
+                fail(f"distributed {tag}: generator state differs from the fused engine's")
+            if tag == "gather":
+                if not (_bitwise_equal(got[0], fused_ref[0]) and torch.equal(got[1], fused_ref[1])):
+                    fail("distributed gather: not bitwise equal to the fused engine")
+                print("distributed gather: bitwise equal to the single-device fused engine")
+                continue
+            dp = max((x - y).abs().max().item() for x, y in zip(_leaves(got[0]),
+                                                                _leaves(fused_ref[0])))
+            close = all(torch.allclose(x, y, rtol=harness.KERNEL_CHECK_RTOL,
+                                       atol=harness.KERNEL_CHECK_ATOL)
+                        for x, y in zip(_leaves(got[0]), _leaves(fused_ref[0])))
+            print(f"distributed {tag}: max |Δparam| {dp:.3g} against the fused engine "
+                  f"(harness tolerance rtol {harness.KERNEL_CHECK_RTOL:g} atol "
+                  f"{harness.KERNEL_CHECK_ATOL:g})")
+            if not close:
+                fail(f"distributed {tag}: off the fused engine by {dp}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the mesh bench scenario, with the fused kernel's check at its width
+    spec = dataclasses.replace(scenarios.get_scenario("mesh_corr_500"), rounds=MESH_ROUNDS,
+                               check_backend="hopper_fused")
+    t0 = time.perf_counter()
+    k.reset_launches()
+    result = harness.run_scenario(spec)
+    launches = dict(k.LAUNCHES)
+    rep = report.make_report(spec, result)
+    path = report.write_report(rep, os.path.join(ROOT, "build", "bench_torch"))
+    check, runs_ = result["kernel_check"], result["runs"]
+    want = {"relay_mix_2d": 0, "fused_aggregate_2d": 2 * spec.rounds}
+    if launches != want:
+        fail(f"distributed mesh_corr_500: kernel launches {launches}, expected {want}")
+    if result["bitwise_match"] is not True or not (
+            check and check["allclose"] and check["max_abs_diff"] <= harness.KERNEL_CHECK_ATOL):
+        fail(f"distributed mesh_corr_500: bitwise {result['bitwise_match']}, check {check}")
+    if result["model_params"] != MESH_SHAPE[1]:
+        fail(f"distributed mesh_corr_500: model_params {result['model_params']}")
+    for engine, r in runs_.items():
+        if not all(math.isfinite(x) for x in r.losses):
+            fail(f"distributed mesh_corr_500 {engine}: non-finite loss")
+    for kn in totals:
+        totals[kn] += launches[kn]
+    engines = "; ".join(f"{e} {r.rounds_per_sec:.3f} rounds/s ({1e3 / r.rounds_per_sec:.3f} "
+                        f"ms a round) dispatches {r.dispatches}" for e, r in runs_.items())
+    print(f"distributed mesh_corr_500 ({spec.rounds} of its 500 rounds, "
+          f"{time.perf_counter() - t0:.1f} s on {rep['device']['name']} at "
+          f"{rep['device']['power_limit_w']} W): {engines}; kernel_check hopper_fused "
+          f"max_abs_diff {check['max_abs_diff']:.3g}; bitwise_match True; model_params "
+          f"{result['model_params']}; launches {launches}; report {os.path.relpath(path, ROOT)}")
+    return totals
+
+
 def main() -> int:
     phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1213,8 +1497,11 @@ def main() -> int:
     async_launches = phase_async()
     t_service = time.perf_counter()
     service_launches = phase_service()
+    t_dist = time.perf_counter()
+    dist_launches = phase_distributed()
     print(f"phases: sparse {t_async - t_sparse:.1f} s, async {t_service - t_async:.1f} s, "
-          f"service {time.perf_counter() - t_service:.1f} s")
+          f"service {t_dist - t_service:.1f} s, distributed "
+          f"{time.perf_counter() - t_dist:.1f} s")
     launches = {"relay_mix_2d": runs["colrel/hopper"]["launches"]["relay_mix_2d"],
                 "fused_aggregate_2d":
                     runs["colrel_fused/hopper_fused"]["launches"]["fused_aggregate_2d"]}
@@ -1233,8 +1520,9 @@ def main() -> int:
             # phase's 5 rounds, the engines phase's four runs of 12, the
             # bench phase's kernel checks (cold and warm passes), the sample
             # sweeps' engines (cold and warm, the segment reduce), the
-            # async engine's and its loops' rounds on the kernel backends
-            # and the service phase's trainer rounds
+            # async engine's and its loops' rounds on the kernel backends,
+            # the service phase's trainer rounds and the distributed phase's
+            # steps, sharded engine and mesh_corr_500 kernel check
             "launches_by_path": {
                 "main": launches[name],
                 "engines": engine_launches[name],
@@ -1242,6 +1530,7 @@ def main() -> int:
                 "sparse": sparse_launches[name],
                 "async": async_launches[name],
                 "service": service_launches[name],
+                "distributed": dist_launches[name],
             },
             "max_abs_err": kern["main_err"][e],
             "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL_F32},
@@ -1256,6 +1545,9 @@ def main() -> int:
             **({"plan": main_t["plan"]} if "plan" in main_t else {}),
             "large": {key: large_t[key] for key in
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "mesh": {**{key: kern["timing"][name]["mesh"][key] for key in
+                        ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                     "max_abs_err": kern["mesh_err"][e]},
             **({"sparse": kern["timing"][name]["sparse"]}
                if "sparse" in kern["timing"][name] else {}),
         })

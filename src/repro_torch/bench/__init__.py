@@ -5,13 +5,14 @@ consumed in order:
 
 1. **Scenarios** (`scenarios`) — :class:`ScenarioSpec` declaratively composes
    model size × topology × fading × drift × churn × engine chunking into one
-   named, registered benchmark setting (the JAX package's registry, minus
-   the scenarios listed in ``scenarios.NOT_YET_PORTED``).
+   named, registered benchmark setting (the JAX package's registry).
 
 2. **Harness** (`harness`) — :func:`run_scenario` runs a spec under each
    engine twice (cold + warm) on the GPU or the CPU, measuring wall clock,
    the one-time cost and rounds/sec, verifies the engines' final parameters
-   match bit for bit, and holds a kernel backend against ``einsum``.
+   match bit for bit (the sharded engines: among themselves, and the
+   one-rank loop within the kernel-check tolerance), and holds a kernel
+   backend against ``einsum``.
 
 3. **Reports** (`report`) — schema-versioned ``BENCH_<scenario>.json``
    emission with the device they ran on, plus :func:`check_regression`.

@@ -18,16 +18,25 @@ convolution algorithms in every engine.
 ``TRACE_<scenario>_<engine>.json`` (Perfetto-loadable) + ``.jsonl`` next to
 the report; the report gains a ``telemetry`` block.
 
+A shard scenario (``mesh8_smoke``, ``mesh8_ring_churn``, ``mesh2_dshard``)
+runs over ``spec.devices`` ranks, which the CLI starts itself
+(``launch.mesh.run_ranks``: spawned processes joined through a ``file://``
+store in a temporary directory): gloo ranks on the CPU with ``--device
+cpu``, else one NCCL rank a GPU.  Every rank runs the scenario; rank 0
+writes the report (the other ranks' traces go to ``rank<k>/``).
+
 Exit status is non-zero when the regression gate fails.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
 
 from repro_torch.bench import harness, report as report_lib, scenarios
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.obs.summary import format_attribution
 
 
@@ -66,6 +75,14 @@ def format_summary(rep: dict) -> str:
             f"{tele['wall_s']:.3f}s):"
         )
         lines.append(format_attribution(tele["phases"], tele["wall_s"]))
+    scheck = rep.get("shard_check")
+    if scheck:
+        lines.append(
+            f"  shard check [{scheck['shard']}/{scheck['exchange']}, "
+            f"{scheck['devices']} ranks]: allclose vs the one-rank loop "
+            f"(max |Δ| {scheck['max_abs_diff']:.2e} ≤ atol {scheck['atol']:g}/"
+            f"rtol {scheck['rtol']:g}), sharded engines bitwise equal to each other"
+        )
     check = rep.get("kernel_check")
     if check:
         lines.append(
@@ -101,6 +118,47 @@ def format_summary(rep: dict) -> str:
         )
         lines.append(f"  speedups: {pairs}  (bitwise_match={rep['bitwise_match']})")
     return "\n".join(lines)
+
+
+def _deterministic() -> None:
+    """TF32 off (matmuls and cuDNN) and deterministic cuDNN: the kernel
+    check compares f32 results at 1e-5, and the bitwise gate needs the same
+    convolution algorithms in every engine."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _scenario_on_rank(rank: int, name: str, engines, device, out_dir: str, trace: bool):
+    """One rank of a shard scenario: every rank runs it (the collectives
+    need them all); rank 0 returns its report and where it wrote it."""
+    _deterministic()
+    spec = scenarios.get_scenario(name)
+    trace_dir = None
+    if trace:
+        trace_dir = out_dir if rank == 0 else os.path.join(out_dir, f"rank{rank}")
+    result = harness.run_scenario(spec, engines=engines, trace_dir=trace_dir, device=device)
+    if rank != 0:
+        return None
+    rep = report_lib.make_report(spec, result)
+    return rep, str(report_lib.write_report(rep, out_dir))
+
+
+def _run_ranked(spec, engines, device, out_dir: str, trace: bool):
+    """Start ``spec.devices`` ranks for a shard scenario and return rank 0's
+    (report, path)."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu and torch.cuda.device_count() < spec.devices:
+        raise RuntimeError(
+            f"{spec.name} needs {spec.devices} GPUs for its {spec.devices} NCCL "
+            f"ranks, have {torch.cuda.device_count()}; run it on gloo CPU ranks "
+            "with --device cpu"
+        )
+    threads = max(1, (os.cpu_count() or 1) // spec.devices) if cpu else None
+    return run_ranks(_scenario_on_rank, spec.devices, backend="gloo" if cpu else "nccl",
+                     args=(spec.name, engines, device, out_dir, trace),
+                     num_threads=threads, timeout=3600.0)[0]
 
 
 def main(argv=None) -> int:
@@ -161,23 +219,23 @@ def main(argv=None) -> int:
             print(format_scenario_line(spec))
         return 0
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    _deterministic()
     names = args.scenario or ["bench_smoke"]
     engines = tuple(e.strip() for e in args.engines.split(",") if e.strip()) or None
     status = 0
     for name in names:
         spec = scenarios.get_scenario(name)
-        result = harness.run_scenario(
-            spec,
-            engines=engines,
-            trace_dir=args.out_dir if args.trace else None,
-            device=args.device,
-        )
-        rep = report_lib.make_report(spec, result)
-        path = report_lib.write_report(rep, args.out_dir)
+        if spec.step == "shard":
+            rep, path = _run_ranked(spec, engines, args.device, args.out_dir, args.trace)
+        else:
+            result = harness.run_scenario(
+                spec,
+                engines=engines,
+                trace_dir=args.out_dir if args.trace else None,
+                device=args.device,
+            )
+            rep = report_lib.make_report(spec, result)
+            path = report_lib.write_report(rep, args.out_dir)
         print(format_summary(rep))
         print(f"  wrote {path}")
         if args.baseline:

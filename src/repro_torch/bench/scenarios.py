@@ -10,10 +10,7 @@ loader instances so cold and warm runs see identical streams.
 The fields, their names and defaults are the JAX package's, so
 ``dataclasses.asdict`` gives the same ``spec`` block.  Backend values are
 renamed by :data:`BACKEND_FROM_JAX` (``pallas`` → ``hopper``, ``pallas_fused``
-→ ``hopper_fused``).  A value whose path the port does not have yet (the
-mesh and sharded steps) raises ``NotImplementedError`` at construction,
-naming its ``ROADMAP.md`` step; the scenarios that need one are listed in
-:data:`NOT_YET_PORTED`.
+→ ``hopper_fused``).
 
 The registered scenarios:
 
@@ -31,6 +28,10 @@ The registered scenarios:
   corr_shadow_500 correlated shadowing: one GP blockage field drives the D2D
                   graph, p static
   corr_uplink_500 corr_shadow_500 with the uplink coupled to the same fade
+  mesh_corr_500   the mesh round step (``build_round_step`` vs
+                  ``build_scan_round_step`` vs ``build_fused_scan_round_step``)
+                  under the coupled correlated channel — ``spec.step =
+                  "mesh"`` swaps the execution path
   resnet20_cifar  the paper's §V model (ResNet-20/GN) on CIFAR-shaped
                   synthetic batches through all three engines, with the
                   ``hopper`` mix-kernel check on the side
@@ -43,6 +44,14 @@ The registered scenarios:
                   per-round fixed-k cohorts (CohortSampler), the
                   neighborhood-blocked sparse OPT-α (SparseOptAlpha) and the
                   ``segment`` backend; n1e3 and smoke carry the einsum check
+  mesh8_smoke     the multi-rank gate: client-sharded fused scan over 8 ranks
+                  (gather exchange, hopper_fused parity check on the side);
+                  ``python -m repro_torch.bench.run`` starts the ranks
+  mesh8_ring_churn
+                  block-ring exchange under rotating-cohort churn +
+                  correlated shadowing, 8 ranks
+  mesh2_dshard    D-axis mode: the (n, D) relay contraction split over a
+                  2-rank "model" axis
   async_ttac_500  time-to-accuracy under Poisson arrival delays: the
                   staleness-weighted async engine vs the loop and pipelined
                   engines on the fig5 channel, with the mandatory delay-0
@@ -66,20 +75,13 @@ from repro_torch.data.partition import iid_partition
 from repro_torch.data.synthetic import cifar_like, gaussian_classification
 from repro_torch.fl.async_engine import SUPPORTED_STRATEGIES as _ASYNC_STRATEGIES
 from repro_torch.fl.simulator import FLSimulator
-from repro_torch.kernels.ops import RELAY_BACKENDS
+from repro_torch.kernels.ops import RELAY_BACKENDS, validate_sharded_backend
 from repro_torch.models.resnet import init_resnet20, resnet20_loss
 from repro_torch.optim.sgd import ClientOpt
 from repro_torch.utils import resolve_device
 
 # the JAX package's relay-backend names → the port's
 BACKEND_FROM_JAX = {"einsum": "einsum", "pallas": "hopper", "pallas_fused": "hopper_fused"}
-
-_DISTRIBUTED = "the distributed engines (ROADMAP step 14)"
-
-
-def _not_ported(what: str, path: str):
-    return NotImplementedError(f"{what}: {path} is not ported to repro_torch yet")
-
 
 @dataclasses.dataclass(frozen=True)
 class ScenarioSpec:
@@ -152,12 +154,21 @@ class ScenarioSpec:
     shadow_sigma: float = 1.0
     blockage_threshold: float = 1.0
     uplink_gain: float = 2.0
-    # execution path: sim = FLSimulator and the round engines (mesh and
-    # shard: step 14)
-    step: str = "sim"
+    # execution path: FLSimulator and its engines ("sim") vs the mesh round
+    # steps (build_round_step / build_scan_round_step /
+    # build_fused_scan_round_step, "mesh") vs the multi-rank sharded step
+    # (build_sharded_scan_round_step, "shard").  The mesh and shard steps
+    # run one whole segment a call, so `chunk` applies to the sim path only.
+    step: str = "sim"  # sim | mesh | shard
+    # sharded execution (step = "shard"): the scan/pipelined engines run the
+    # sharded round step over `devices` torch.distributed ranks (the bench
+    # CLI starts them; the spec itself touches no process group).  `shard`
+    # picks the split axis (clients | d), `exchange` the relay collective in
+    # clients mode (gather = the dense order, bitwise; ring = O(1)-buffer
+    # block ring at f32 tolerance).
     devices: int = 1
-    shard: str = "clients"
-    exchange: str = "gather"
+    shard: str = "clients"  # clients | d
+    exchange: str = "gather"  # gather | ring
     # round engines: rounds staged (and traced) at a time
     chunk: int = 32
     # which engines the scenario benches by default (run.py --engines
@@ -183,8 +194,39 @@ class ScenarioSpec:
         # fail at construction, not mid-benchmark after batches are generated
         if self.step not in ("sim", "mesh", "shard"):
             raise ValueError(f"unknown step: {self.step!r}")
-        if self.step != "sim":
-            raise _not_ported(f"step={self.step!r}", _DISTRIBUTED)
+        if self.step == "mesh" and self.churn != "none":
+            raise ValueError("mesh scenarios do not drive churn masks")
+        if self.step == "mesh" and self.policy == "none":
+            raise ValueError("the mesh round step needs a relay policy")
+        if self.step == "mesh" and self.strategy != "colrel_fused":
+            # _MeshStep benches build_round_step(relay_mode="fused") — the
+            # mesh analogue of colrel_fused; any other strategy would be
+            # recorded in the report but not what was measured
+            raise ValueError("mesh scenarios bench the fused relay only")
+        if self.step == "shard":
+            if self.policy == "none":
+                raise ValueError("the sharded round step needs a relay policy")
+            if self.strategy != "colrel_fused":
+                raise ValueError("shard scenarios bench the fused relay only")
+            if self.devices < 2:
+                raise ValueError("shard scenarios need devices >= 2")
+            if self.shard not in ("clients", "d"):
+                raise ValueError(f"unknown shard mode: {self.shard!r}")
+            if self.exchange not in ("gather", "ring"):
+                raise ValueError(f"unknown exchange: {self.exchange!r}")
+            if self.shard == "clients" and self.n_clients % self.devices:
+                raise ValueError(
+                    f"n_clients={self.n_clients} must divide evenly over "
+                    f"the {self.devices}-rank client axis"
+                )
+            # backend dispatch under sharding: ring/d refuse kernel backends
+            validate_sharded_backend(
+                self.relay_backend, shard=self.shard, exchange=self.exchange
+            )
+            if self.check_backend != "none":
+                validate_sharded_backend(
+                    self.check_backend, shard=self.shard, exchange=self.exchange
+                )
         if self.fading == "corr_uplink" and self.drift != "static":
             raise ValueError("corr_uplink couples p to the fade; set drift='static'")
         if self.topology == "geometric" and self.geo_degree <= 0:
@@ -197,8 +239,19 @@ class ScenarioSpec:
             raise ValueError("uniform sampling needs sample_rate in (0, 1]")
         if self.sample_every < 1:
             raise ValueError("sample_every must be >= 1")
-        # the segment backend consumes EdgeRelay operands, and the colrel
+        if self.sampling != "none" and self.step != "sim":
+            raise ValueError("cohort sampling drives churn masks: sim path only")
+        # the segment backend consumes EdgeRelay operands — single-host sim
+        # path only (the mesh/shard steps are dense), and the colrel
         # strategies need a policy that actually emits EdgeRelays
+        for be, what in (
+            (self.relay_backend, "relay_backend"),
+            (self.check_backend, "check_backend"),
+        ):
+            if be == "segment" and self.step != "sim":
+                raise ValueError(
+                    f"{what}='segment' runs on the single-host sim path only"
+                )
         if (
             self.relay_backend == "segment"
             and self.strategy in ("colrel", "colrel_fused")
@@ -480,12 +533,7 @@ def build(spec: ScenarioSpec, *, device=None) -> ScenarioBundle:
 _REGISTRY: dict[str, ScenarioSpec] = {}
 
 # the JAX package's scenarios whose path the port does not have yet
-NOT_YET_PORTED = {
-    "mesh8_smoke": "ROADMAP step 14",
-    "mesh8_ring_churn": "ROADMAP step 14",
-    "mesh2_dshard": "ROADMAP step 14",
-    "mesh_corr_500": "ROADMAP step 14",
-}
+NOT_YET_PORTED: dict[str, str] = {}
 
 
 def register(spec: ScenarioSpec) -> ScenarioSpec:
@@ -804,6 +852,111 @@ register(
         sampling="fixed_k",
         sample_k=32,
         chunk=1,
+    )
+)
+
+# ------------------------------------------------------------ multi-rank mesh
+# The mesh8_* / mesh2_* scenarios run over `devices` torch.distributed ranks:
+# `python -m repro_torch.bench.run` starts them (gloo with --device cpu,
+# NCCL on GPUs, one card a rank).  Registration is pure data — the rank
+# count is checked when the mesh is made, never at import.  The shard gate
+# replaces the bitwise gate: the sharded engines must agree bitwise *among
+# themselves* and match the one-rank loop within the kernel-check tolerance
+# (report.shard_check).
+
+register(
+    ScenarioSpec(
+        name="mesh8_smoke",
+        description=(
+            "8-device CI gate: client-sharded fused scan over a host mesh, "
+            "gather exchange, pallas_fused parity check"
+        ),
+        n_clients=8,
+        rounds=32,
+        local_steps=2,
+        local_batch=4,
+        dim=32,
+        width=16,
+        n_train=256,
+        adj_every=8,
+        p_every=8,
+        drift_hold=1,
+        step="shard",
+        devices=8,
+        check_backend="hopper_fused",
+    )
+)
+
+register(
+    ScenarioSpec(
+        name="mesh8_ring_churn",
+        description=(
+            "sharded acceptance: block-ring ppermute exchange under "
+            "rotating-cohort churn + correlated shadowing, 8 devices"
+        ),
+        n_clients=8,
+        rounds=64,
+        local_steps=2,
+        local_batch=4,
+        dim=32,
+        width=16,
+        n_train=256,
+        fading="corr_shadow",
+        drift="static",
+        adj_every=8,
+        p_every=8,
+        churn="rotating",
+        n_cohorts=4,
+        churn_hold=8,
+        step="shard",
+        devices=8,
+        exchange="ring",
+    )
+)
+
+register(
+    ScenarioSpec(
+        name="mesh2_dshard",
+        description=(
+            "D-axis GSPMD mode: the (n, D) relay contraction partitioned "
+            "over a 2-device model axis, static channel"
+        ),
+        n_clients=8,
+        rounds=32,
+        local_steps=2,
+        local_batch=4,
+        dim=32,
+        width=16,
+        n_train=256,
+        fading="static",
+        drift="static",
+        step="shard",
+        devices=2,
+        shard="d",
+    )
+)
+
+register(
+    ScenarioSpec(
+        name="mesh_corr_500",
+        description=(
+            "production mesh round step (fused relay) under the coupled "
+            "correlated channel: per-round build_round_step vs one "
+            "build_scan_round_step dispatch per epoch"
+        ),
+        n_clients=10,
+        rounds=500,
+        local_steps=2,
+        local_batch=8,
+        dim=64,
+        width=32,
+        n_train=1024,
+        fading="corr_uplink",
+        drift="static",
+        adj_every=25,
+        p_every=25,
+        chunk=25,
+        step="mesh",
     )
 )
 

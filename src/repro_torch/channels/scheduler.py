@@ -508,7 +508,7 @@ def _staged_items(
     interleaved on the consumer, either way its own Perfetto row.  The
     policy's ``solve`` spans fire from inside ``relay_matrix``.
     ``to_device`` is :func:`_to_device` bound to the prefetcher's device and
-    the consumer's stream.
+    the consumer's stream, or the caller's ``place``.
     """
     for seg in schedule.segments(rounds):
         A = policy.relay_matrix(seg.state) if policy is not None else None
@@ -604,9 +604,13 @@ class SegmentPrefetcher:
         threaded: bool = False,
         tracer=None,
         device=None,
+        place: Callable[[Any], Any] | None = None,
     ):
         """``device`` is where staged batches go: the GPU unless the caller
-        passes ``device="cpu"``."""
+        passes ``device="cpu"``.  ``place`` replaces the default transfer
+        (each host-stacked chunk copied whole to ``device``) with the
+        caller's placement of the chunk — the sharded engine keeps only its
+        rank's clients of each chunk; ``device`` is then unused."""
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         if depth < 1:
@@ -616,8 +620,10 @@ class SegmentPrefetcher:
         self._inflight = None
         self._tracer = NULL_TRACER if tracer is None else tracer
         self._counters_folded = False
-        device = resolve_device(device)
-        stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        if place is None:
+            device = resolve_device(device)
+            stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+            place = functools.partial(_to_device, device=device, stream=stream)
         self._gen = _staged_items(
             self.stats,
             schedule,
@@ -627,7 +633,7 @@ class SegmentPrefetcher:
             policy,
             bool(pad_to_chunk),
             self._tracer,
-            functools.partial(_to_device, device=device, stream=stream),
+            place,
         )
         self._thread = None
         self._finalizer = None

@@ -46,10 +46,16 @@ worker thread) and draws its τ inside the chunk, one ``(n,)`` Bernoulli per
 real round in round order from the simulator's generator — the same calls,
 so the same bits, as the loop's per-round ``sample_tau``.
 
-``ShardedScanEngine`` comes with the distributed slice of the port.
+Sharded path
+------------
+:class:`ShardedScanEngine` drives the multi-rank step of
+:func:`repro_torch.fl.distributed.build_sharded_scan_round_step` one whole
+channel epoch a call, every rank running the same host walk; each rank
+stages only its own clients' rows of every epoch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -59,7 +65,8 @@ from repro_torch.channels.scheduler import SegmentPrefetcher, _stack_host, _to_d
 from repro_torch.core import relay as relay_lib
 from repro_torch.fl.simulator import FLSimulator
 from repro_torch.obs import NULL_TRACER
-from repro_torch.utils import tree_map
+from repro_torch.sharding import rules as sharding_rules
+from repro_torch.utils import resolve_device, tree_map
 
 
 def _stack_rounds(batches: list, device: torch.device) -> Any:
@@ -442,6 +449,165 @@ class PipelinedScanEngine:
         if self.tracer.enabled:
             self.tracer.count("pipelined.dispatches", self.dispatches)
         return params, server_state, _concat_metrics(all_metrics), generator
+
+
+class ShardedScanEngine:
+    """Schedule driver for the multi-rank sharded round step.
+
+    Wraps a ``scan_rounds`` built by
+    :func:`repro_torch.fl.distributed.build_sharded_scan_round_step` and
+    drives a ``ChannelSchedule`` one **whole epoch a call** — the channel
+    tuple (A, p, active) is constant within an epoch, so the epoch is the
+    natural unit and nothing is padded.  Every rank of the mesh runs the
+    same walk: the same segments, OPT-α solves and batch draws, in the
+    serial driver's order, so A, p, the churn mask and the generator agree
+    on every rank without a message.
+
+    Staging differs from the single-device engines in one way: in
+    ``shard="clients"`` mode each host-stacked epoch is cut to this rank's
+    block of :func:`repro_torch.sharding.rules.round_batch_specs`'s layout
+    (dim 1, the rank's clients) before the copy, so a rank moves only its
+    clients' bytes to its device.  (In ``shard="d"`` mode every rank runs
+    every client, so the whole epoch is copied.)
+
+    ``prefetch`` picks the staging mode: ``"serial"`` stages each epoch
+    inline before its call (the scan engine's way); ``"inline"`` /
+    ``"thread"`` stage through a
+    :class:`~repro_torch.channels.scheduler.SegmentPrefetcher` (its ``place``
+    hook does the cut), overlapping epoch k+1's OPT-α re-solve, stacking and
+    copy with epoch k on the device — measured in ``prefetch_stats``.
+
+    The trajectory matches the one-rank fused step to the exchange's
+    guarantee: bitwise for ``exchange="gather"``, f32-accumulation tolerance
+    for ``exchange="ring"`` (see `repro_torch.fl.ring`).  The JAX package's
+    ``trace_count`` has no counterpart: nothing is compiled (a chunk
+    captured as a CUDA graph is later work).
+    """
+
+    def __init__(
+        self,
+        step_fn: Callable,
+        *,
+        mesh,
+        shard: str = "clients",
+        prefetch: str = "inline",
+        prefetch_depth: int = 2,
+        tracer=None,
+        device=None,
+    ):
+        """``step_fn`` is the ``scan_rounds(generator, params, server_state,
+        batches, p, lr, A=..., active=...)`` callable from
+        ``build_sharded_scan_round_step`` (built on the same ``mesh`` and
+        ``shard`` mode).  ``tracer`` adds per-epoch dispatch + device-fence
+        spans and the prefetcher's stage/h2d spans.  ``device`` is this
+        rank's device: the GPU unless the caller passes ``device="cpu"``."""
+        if prefetch not in ("serial", "inline", "thread"):
+            raise ValueError(f"unknown prefetch mode: {prefetch!r}")
+        if shard not in ("clients", "d"):
+            raise ValueError(f"unknown shard mode: {shard!r} (clients | d)")
+        self.mesh = mesh
+        self.shard = shard
+        self.prefetch = prefetch
+        self.prefetch_depth = int(prefetch_depth)
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self.device = resolve_device(device)
+        self._step_fn = step_fn
+        self.dispatches = 0
+        self.prefetch_stats = None
+
+    def _place(self, host, *, stream=None):
+        """Staging-side placement: host-stacked epoch → this rank's block on
+        its device (clients mode: dim 1 cut to the rank's clients)."""
+        if self.shard == "clients":
+            specs = sharding_rules.round_batch_specs(host, self.mesh)
+            host = tree_map(np.ascontiguousarray,
+                            sharding_rules.local_shard(host, specs, self.mesh))
+        return _to_device(host, device=self.device, stream=stream)
+
+    def _dispatch(self, generator, params, server_state, batches, seg, lr, A):
+        dev = self.device
+        A, p, active = (_segment_value(x, dev) for x in (A, seg.p, seg.active))
+        with self.tracer.span("shard.epoch", cat="dispatch", epoch=seg.epoch_id,
+                              rounds=seg.n_rounds):
+            out = self._step_fn(generator, params, server_state, batches, p, lr,
+                                A=A, active=active)
+        self.dispatches += 1
+        return out
+
+    def run_schedule(
+        self,
+        generator: torch.Generator,
+        params,
+        server_state,
+        *,
+        schedule,
+        rounds,
+        next_batch: Callable[[], Any],
+        lr,
+        policy=None,
+        on_segment: Callable | None = None,
+    ):
+        """Drive a ``ChannelSchedule`` for ``rounds`` rounds across the
+        mesh — same contract as :meth:`EpochScanEngine.run_schedule`, called
+        by every rank.  A relay policy is required (the sharded step is
+        colrel only).  Returns ``(params, server_state, metrics,
+        generator)``; ``metrics`` is ``{"loss": (rounds,)}`` — the
+        active-masked mean client loss per round, the same on every rank."""
+        if policy is None:
+            raise ValueError("the sharded engine needs a relay policy")
+        dev = self.device
+        self.dispatches = 0
+        self.prefetch_stats = None
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        place = functools.partial(self._place, stream=stream)
+        losses: list = []
+
+        def finish(seg, out):
+            nonlocal generator, params, server_state
+            generator, params, server_state, seg_losses = out
+            if self.tracer.enabled:
+                with self.tracer.span(
+                    "shard.device", cat="device", track="device", epoch=seg.epoch_id
+                ):
+                    _fence(dev)
+            losses.append(seg_losses)
+            if on_segment is not None:
+                on_segment(seg, params, {"loss": seg_losses})
+
+        if self.prefetch == "serial":
+            for seg in schedule.segments(rounds):
+                A = policy.relay_matrix(seg.state)
+                with self.tracer.span("shard.stage", cat="stage", epoch=seg.epoch_id):
+                    stacked = place(_stack_host([next_batch() for _ in range(seg.n_rounds)], 0))
+                finish(seg, self._dispatch(generator, params, server_state, stacked,
+                                           seg, lr, A))
+        else:
+            # chunk = the full horizon ⇒ exactly one staged item per segment
+            # (a segment never exceeds the horizon): the sharded step runs
+            # whole epochs, so staging must hand it whole epochs
+            prefetcher = SegmentPrefetcher(
+                schedule,
+                rounds,
+                chunk=rounds,
+                next_batch=next_batch,
+                policy=policy,
+                depth=self.prefetch_depth,
+                threaded=self.prefetch == "thread",
+                tracer=self.tracer,
+                place=place,
+            )
+            try:
+                for item in prefetcher:
+                    out = self._dispatch(generator, params, server_state, item.batches,
+                                         item.segment, lr, item.A)
+                    prefetcher.note_inflight(_event_after(dev))
+                    finish(item.segment, out)
+            finally:
+                prefetcher.close()
+            self.prefetch_stats = prefetcher.stats
+        if self.tracer.enabled:
+            self.tracer.count("shard.dispatches", self.dispatches)
+        return params, server_state, {"loss": torch.cat(losses)}, generator
 
 
 def run_rounds_loop(

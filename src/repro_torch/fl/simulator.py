@@ -22,10 +22,31 @@ from repro_torch.optim.sgd import ClientOpt
 from repro_torch.utils import (
     resolve_device,
     stacked_ravel,
+    tree_flatten,
     tree_map,
     tree_sub,
     tree_unravel,
 )
+
+
+def local_updates(grad_fn, client_opt: ClientOpt, params, batch, lr, steps: int):
+    """``steps`` local SGD steps of every client from the broadcast
+    ``params``: the stacked per-client deltas (leaves (n, ...)) and each
+    client's loss at its first step.  ``grad_fn`` is
+    ``torch.func.vmap(torch.func.grad_and_value(loss_fn))``; ``batch`` has
+    leaves (n, steps, b, ...), n the clients this call runs (all of them,
+    or one rank's block in the sharded step)."""
+    n = tree_flatten(batch)[0][0].shape[0]
+    start = tree_map(lambda x: x.unsqueeze(0).expand(n, *x.shape), params)
+    p, s = start, client_opt.init(start)
+    first_loss = None
+    for t in range(steps):
+        minibatch = tree_map(lambda x: x[:, t], batch)
+        grads, loss = grad_fn(p, minibatch)
+        p, s = client_opt.step(p, grads, s, lr)
+        if first_loss is None:
+            first_loss = loss
+    return tree_sub(p, start), first_loss
 
 
 def _metrics(loss, tau, delta_norm):
@@ -101,16 +122,7 @@ class FLSimulator:
     def _client_updates(self, params, batch, lr):
         """Stacked per-client deltas (leaves (n, ...)) and each client's loss
         at its first local step."""
-        start = tree_map(lambda x: x.unsqueeze(0).expand(self.n, *x.shape), params)
-        p, s = start, self.client_opt.init(start)
-        first_loss = None
-        for t in range(self.T):
-            minibatch = tree_map(lambda x: x[:, t], batch)
-            grads, loss = self._grad_fn(p, minibatch)
-            p, s = self.client_opt.step(p, grads, s, lr)
-            if first_loss is None:
-                first_loss = loss
-        return tree_sub(p, start), first_loss
+        return local_updates(self._grad_fn, self.client_opt, params, batch, lr, self.T)
 
     def round_math(self, params, server_state, batch, tau, A, lr, active):
         """One round on given τ: the counterpart of the JAX package's

@@ -43,6 +43,43 @@ def validate_backend(backend: str) -> str:
     return backend
 
 
+def validate_sharded_backend(backend: str, *, shard: str, exchange: str = "gather") -> str:
+    """Backend dispatch under sharding (``build_sharded_scan_round_step``):
+
+    * ``shard="d"``: every rank contracts its column slice of the (n, D)
+      buffer and the slices are gathered — the plain contraction only.
+    * ``exchange="ring"``: the ring collective *replaces* the relay
+      contraction (k−1 send/recv rotations + all_reduce), so a kernel
+      backend would be silently ignored — einsum only, by refusal rather
+      than surprise.
+    * ``exchange="gather"``: the gathered (n, D) buffer is whole on every
+      rank, so any dense backend (both CUDA kernels) runs unchanged.
+    * ``segment`` is refused under every sharding mode: the sharded step
+      builders take a dense (n, n) operand.
+    """
+    validate_backend(backend)
+    if backend == "segment":
+        raise ValueError(
+            "relay_backend='segment' is single-host only — the sharded "
+            "round-step builders need a dense relay operand; use "
+            "relay_backend='einsum' (or a hopper backend with "
+            "exchange='gather')"
+        )
+    if shard == "d" and backend != "einsum":
+        raise ValueError(
+            "D-axis sharding contracts each rank's column slice of the buffer "
+            "with the plain product; the CUDA kernels are not wired for "
+            "slices — use relay_backend='einsum'"
+        )
+    if shard == "clients" and exchange == "ring" and backend != "einsum":
+        raise ValueError(
+            "exchange='ring' replaces the relay contraction with send/recv "
+            "rotations; relay_backend must be 'einsum' (the kernel would "
+            "never run)"
+        )
+    return backend
+
+
 def _mask_A(A, active, device) -> torch.Tensor:
     """Restrict A to the active block of a padded client dim (client churn);
     the mask folds into the operand, the kernel itself is unchanged."""

@@ -2,8 +2,9 @@
 ``repro.bench``.  Oracle: ``tests/test_bench.py``.
 
 * Registry: every ported spec equals the JAX spec field for field once the
-  backend names are mapped; the ported and the not-yet-ported scenarios
-  together are the JAX registry; an unported value raises at construction.
+  backend names are mapped; the ported scenarios are the whole JAX registry
+  (the mesh and shard scenarios included; their runs are
+  ``tests/test_torch_sharded_engine.py``).
 * Bundles, equal and not just close: base graph and p, the schedule's
   ``ChannelState`` stream and ``segments()``, the policy's A per segment and
   the pre-generated batches, for every ported scenario cut to ≤ 16 rounds.
@@ -79,29 +80,10 @@ def test_ported_spec_equals_jax_spec(name):
 
 def test_ported_and_unported_make_the_jax_registry():
     jax_names = {s.name for s in jax_scenarios.list_scenarios()}
-    assert set(PORTED).isdisjoint(scenarios.NOT_YET_PORTED)
-    assert set(PORTED) | set(scenarios.NOT_YET_PORTED) == jax_names
-    assert {"bench_smoke", "resnet20_cifar", "relay_sweep_1e7"} <= set(PORTED)
-
-
-@pytest.mark.parametrize("name", sorted(scenarios.NOT_YET_PORTED))
-def test_unported_scenario_raises_naming_its_step(name):
-    step = scenarios.NOT_YET_PORTED[name]
-    with pytest.raises(NotImplementedError, match=step):
-        scenarios.ScenarioSpec(**_mapped(jax_scenarios.get_scenario(name)))
-
-
-@pytest.mark.parametrize(
-    "change,step",
-    [
-        (dict(step="mesh"), 14),
-        (dict(step="shard", devices=2), 14),
-    ],
-    ids=lambda x: str(x),
-)
-def test_unported_values_raise_not_implemented(change, step):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP step {step}"):
-        dataclasses.replace(scenarios.get_scenario("bench_smoke"), **change)
+    assert scenarios.NOT_YET_PORTED == {}
+    assert set(PORTED) == jax_names
+    assert {"bench_smoke", "resnet20_cifar", "relay_sweep_1e7", "mesh8_smoke",
+            "mesh_corr_500"} <= set(PORTED)
 
 
 def test_spec_validation_and_registry_errors():
@@ -296,6 +278,29 @@ def test_run_scenario_gates_pass_on_cpu(name, tmp_path):
             assert runs[engine].telemetry["events"] > 0
         rep = report_lib.make_report(spec, result)
         assert set(rep["telemetry"]) == set(spec.engines)
+
+
+def test_mesh_scenario_gates_pass_on_cpu(tmp_path):
+    """mesh_corr_500 (cut to 50 rounds, with the hopper_fused check added):
+    the three mesh steps bitwise equal, one call a round for the loop and
+    one an epoch for the scan steps, the kernel check within 1e-5, a traced
+    pass with the mesh spans."""
+    spec = dataclasses.replace(scenarios.get_scenario("mesh_corr_500"), rounds=50,
+                               check_backend="hopper_fused")
+    result = harness.run_scenario(spec, device="cpu", trace_dir=tmp_path)
+    runs = result["runs"]
+    assert result["bitwise_match"] is True and result["shard_check"] is None
+    assert result["kernel_check"]["allclose"] and result["kernel_check"]["max_abs_diff"] <= 1e-5
+    segs = list(scenarios.build(spec, device="cpu").make_schedule().segments(spec.rounds))
+    assert len(segs) == 2
+    for name, run in runs.items():
+        assert run.dispatches == (spec.rounds if name == "loop" else len(segs))
+        assert run.final_loss == runs["loop"].final_loss and len(run.losses) == spec.rounds
+    assert runs["pipelined"].chunks_staged == len(segs)
+    assert result["model_params"] == 64 * 32 + 32 + 32 * 10 + 10
+    spans = {e["name"] for e in json.loads(
+        (tmp_path / "TRACE_mesh_corr_500_pipelined.json").read_text())["traceEvents"]}
+    assert {"mesh.fused", "mesh.device"} <= spans
 
 
 @pytest.mark.parametrize("gate", ["bitwise", "kernel"])

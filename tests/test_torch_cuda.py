@@ -98,6 +98,23 @@ def test_kernels_bitwise_equal_to_plain_versions(dev, n, D, dtype):
     assert torch.equal(k.fused_aggregate_2d(c, d), ref.fused_aggregate_2d(c.to(dtype), d))
 
 
+# mesh_corr_500's MLP (dim 64, width 32): D = 2,410, the shape the
+# distributed slice's mesh scenario gives the fused kernel
+@pytest.mark.parametrize("layout", ["contiguous", "row_slice", "elem_offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_the_mesh_scenario_shape(dev, dtype, layout):
+    A, c, d = _inputs(10, 2_410, dtype, dev, layout)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(k.relay_mix_2d(A, d).float(),
+                               ref.relay_mix_2d(A.to(dtype), d).float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(k.fused_aggregate_2d(c, d).float(),
+                               ref.fused_aggregate_2d(c.to(dtype), d).float(),
+                               atol=atol, rtol=rtol)
+    if layout == "contiguous":
+        assert torch.equal(k.relay_mix_2d(A, d), ref.relay_mix_2d(A.to(dtype), d))
+        assert torch.equal(k.fused_aggregate_2d(c, d), ref.fused_aggregate_2d(c.to(dtype), d))
+
+
 def test_relay_mix_backward_on_card(dev):
     A, _, d = _inputs(6, 3001, torch.float32, dev)
     cot = torch.randn_like(d)
@@ -490,3 +507,48 @@ def test_async_trainer_bursts_equal_one_call_on_card(dev):
     assert torch.equal(one.params["x"], burst.params["x"])
     assert all(np.array_equal(m1[key], m2[key]) for key in m1)
     assert torch.equal(one.generator.get_state(), burst.generator.get_state())
+
+
+def test_sharded_step_over_nccl_on_card(dev, tmp_path):
+    """The sharded step over an NCCL world of one rank: the gather exchange
+    on hopper_fused bitwise equal to the fused scan step (the kernel runs
+    once a round), the ring within 1e-5, the same generator state."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.fl import distributed
+    from repro_torch.launch.mesh import make_client_mesh
+
+    n, T, R, dim = 8, 2, 3, 4097
+    rng = np.random.default_rng(0)
+    batches = {"c": rng.standard_normal((R, n, T, 4, dim)).astype(np.float32)}
+    A = rng.uniform(0.0, 1.0, (n, n)) / n + np.eye(n) * 0.5
+    p = rng.uniform(0.3, 0.9, n)
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    def run(step):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        return step(gen, {"x": torch.ones(dim, device=dev)}, None, batches, p, 0.1, A=A)
+
+    kw = dict(n_clients=n, local_steps=T, relay_mode="fused")
+    ref = run(distributed.build_fused_scan_round_step(loss_fn, relay_backend="hopper_fused",
+                                                      **kw))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_client_mesh()
+        k.reset_launches()
+        gather = run(distributed.build_sharded_scan_round_step(
+            loss_fn, mesh=mesh, relay_backend="hopper_fused", **kw))
+        assert k.LAUNCHES["fused_aggregate_2d"] == R
+        ring = run(distributed.build_sharded_scan_round_step(
+            loss_fn, mesh=mesh, exchange="ring", **kw))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(gather[1]["x"], ref[1]["x"]) and torch.equal(gather[3], ref[3])
+    torch.testing.assert_close(ring[1]["x"], ref[1]["x"], atol=1e-5, rtol=1e-5)
+    for out in (gather, ring):
+        assert torch.equal(out[0].get_state(), ref[0].get_state())

@@ -16,8 +16,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 REF, PORT = ROOT / "repro", ROOT / "repro_torch"
 
 # Reference modules with no counterpart yet, by the step that ports them
-STEP14_DISTRIBUTED = {"fl/distributed.py", "fl/ring.py", "launch/mesh.py",
-                      "sharding/__init__.py", "sharding/rules.py"}
 STEP15_LM_ZOO = {
     "configs/registry.py", "configs/falcon_mamba_7b.py", "configs/glm4_9b.py",
     "configs/grok_1_314b.py", "configs/llama_3_2_vision_11b.py",
@@ -28,15 +26,10 @@ STEP15_LM_ZOO = {
 }
 STEP16_XLA_TOOLING = {"launch/attribute.py", "launch/dryrun.py", "launch/hlo_cost.py",
                       "sharding/hints.py"}
-MODULES_NOT_YET_PORTED = STEP14_DISTRIBUTED | STEP15_LM_ZOO | STEP16_XLA_TOOLING
+MODULES_NOT_YET_PORTED = STEP15_LM_ZOO | STEP16_XLA_TOOLING
 
 # Names missing from a ported module, by module
 NAMES_NOT_YET_PORTED = {
-    # step 14: the sharded engine, the distributed OPT-α solve, the mesh
-    # backend check
-    "fl/engine.py": {"ShardedScanEngine"},
-    "core/opt_alpha.py": {"optimize_distributed"},
-    "kernels/ops.py": {"validate_sharded_backend"},
     # step 15: the LM config classes and input shapes, the model registry,
     # the two service command lines and the decode demo
     "configs/base.py": {"MoEConfig", "SSMConfig", "RGLRUConfig", "ShapeConfig",
@@ -53,6 +46,7 @@ MEMBERS_NOT_YET_PORTED = {
     # step 9a: a chunk captured as a CUDA graph; its captures are the count
     ("fl/engine.py", "EpochScanEngine"): {"trace_count"},
     ("fl/engine.py", "PipelinedScanEngine"): {"trace_count"},
+    ("fl/engine.py", "ShardedScanEngine"): {"trace_count"},
     # step 15: the LM fields of the model config
     ("configs/base.py", "ModelConfig"): {
         "act", "active_param_count", "cross_attn_every", "d_ff", "enc_dec", "enc_frames",

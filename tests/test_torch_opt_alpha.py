@@ -97,3 +97,33 @@ def test_connectivity_draws_from_a_torch_generator():
     with pytest.raises(ValueError, match="lie in"):
         connectivity.ConnectivityModel([0.5, 1.5])
     assert np.array_equal(connectivity.homogeneous(4, 0.3).p, np.full(4, 0.3, np.float32))
+
+
+@pytest.mark.parametrize("topo", ["ring1", "ring2", "er", "clusters"])
+def test_optimize_distributed_equals_jax_and_the_centralized_solve(topo):
+    """Paper Remark 2 (oracle: ``tests/test_distributed_opt_alpha.py``): the
+    2-hop solve equals the JAX package's bit for bit, and the centralized
+    Gauss-Seidel solve column for column."""
+    n = 12
+    p = connectivity.heterogeneous_profile(n).p
+    adj = {
+        "ring1": topology.ring(n, 1),
+        "ring2": topology.ring(n, 2),
+        "er": topology.erdos_renyi(n, 0.35, seed=3),
+        "clusters": topology.clusters(n, 3),
+    }[topo]
+    got = opt_alpha.optimize_distributed(p, adj, sweeps=25)
+    want = jax_opt.optimize_distributed(p, adj, sweeps=25)
+    for field in ("A", "S_history", "feasible_columns"):
+        assert np.array_equal(getattr(got, field), getattr(want, field)), field
+    assert (got.sweeps, got.bisection_iters_total) == (want.sweeps, want.bisection_iters_total)
+    central = opt_alpha.optimize(p, adj, sweeps=25)
+    np.testing.assert_allclose(got.A, central.A, atol=1e-10)
+    np.testing.assert_allclose(got.S_history, central.S_history, atol=1e-10)
+
+
+def test_optimize_distributed_is_unbiased():
+    p = connectivity.paper_heterogeneous().p
+    res = opt_alpha.optimize_distributed(p, topology.ring(10, 1), sweeps=30)
+    assert res.feasible_columns.all()
+    assert np.abs(opt_alpha.unbiasedness_residual(p, res.A)).max() < 1e-8
