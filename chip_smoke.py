@@ -123,6 +123,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
             Each kernel launched once a round on its backend and never
             elsewhere.  Prints ms a round per run and the world size;
             multi-rank exchange is not measured on one card.
+11. lm       the LM model zoo (``repro_torch.models``) and its serving path.
+            glm4-9b at full width and depth (9,399,767,040 f32 parameters,
+            drawn on the card) through ``get_model`` and
+            ``launch/serve.py::_decode_demo`` at the serving CLI's defaults
+            (batch 4, prompt 64, 16 new tokens), after a 2-token warm-up
+            demo.  Gates: the parameter count equals ``param_count()``; the
+            first decode step's logits within relative max error 2e-3 of a
+            teacher-forced prefill of the prompt plus that token (the
+            reference test's bar); every decoded logit finite.  The demo
+            replays its decode step as a CUDA graph.  Prints prefill ms,
+            the capture's ms, decode ms a token, tokens/s, peak GB, the
+            decode step's byte bounds, ms a token of the same step eager
+            and one profiled eager step.  Then every
+            assigned architecture at ``reduced()`` (B = 2, S = 96): prefill
+            logits and loss for CPU-made parameters within atol 1e-5 + rtol
+            1e-5 of the port's CPU run, decode against teacher forcing (MoE
+            at capacity factor 8) and 8 greedy steps finite.  Then
+            ``FLSimulator`` ColRel on glm4-9b and mixtral-8x22b at
+            ``reduced()`` (n = 10, T = 2, ``lm_tokens`` batches of 8 × 64, 4
+            rounds): colrel on ``hopper`` and colrel_fused on
+            ``hopper_fused`` within the harness's 1e-5 of ``einsum``, each
+            kernel launched once a round on its backend and never on the
+            other.  Then both kernels at the two LM widths
+            (D = 1,443,072 and 3,804,416): checked against the plain
+            version, timed beside it, the library call and the bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor the JAX package.
@@ -208,6 +233,21 @@ SERVICE_ROUNDS, SERVICE_BURST, SERVICE_CRASH, SERVICE_REPS = 12, 4, 8, 5
 # backends, and at lr 0.05 a ResNet trajectory grows a 3e-8 difference
 # after one round past 1e-3 within 8 rounds (CPU rehearsal)
 DIST_ROUNDS, SHARD_ROUNDS, MESH_ROUNDS, SHARD_LR = 3, 8, 100, 1e-3
+
+# lm phase: glm4-9b at full width and depth served through the decode demo
+# at the serving CLI's defaults (batch 4, prompt 64, 16 new tokens); every
+# assigned architecture at reduced() (B = 2, S = 96, 8 greedy steps);
+# ColRel rounds of glm4-9b and mixtral-8x22b at reduced() with the training
+# CLI's lm_tokens batches (n = 10, T = 2, local batch 8, sequence 64).  The
+# decode/teacher-forcing bar is the reference test's (relative max error
+# < 2e-3); card against CPU atol 1e-5 + rtol 1e-5
+LM_SERVE_ARCH, LM_SERVE_REDUCED = "glm4-9b", False
+LM_BATCH, LM_PROMPT, LM_NEW_TOKENS = 4, 64, 16
+LM_TF_REL = 2e-3
+LM_EAGER_STEPS = 3
+LM_B, LM_S, LM_DECODE_STEPS = 2, 96, 8
+LM_FL_ARCHS = ("glm4-9b", "mixtral-8x22b")
+LM_FL_CLIENTS, LM_FL_T, LM_FL_BATCH, LM_FL_SEQ, LM_FL_ROUNDS, LM_FL_LR = 10, 2, 8, 64, 4, 0.1
 
 # NVIDIA's H100 SXM data sheet (dense rates, 700 W): device memory
 # rate and the f32 rate outside the tensor cores
@@ -1482,6 +1522,323 @@ def phase_distributed() -> dict:
     return totals
 
 
+def _lm_batch(cfg, seed: int, B: int, S: int) -> dict:
+    """Numpy tokens (B, S + 1) and the family's stub frontend input."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)}
+    if cfg.family == "audio":
+        out["frame_embeds"] = rng.standard_normal((B, cfg.enc_frames, cfg.d_model)).astype(
+            np.float32)
+    if cfg.family == "vlm":
+        out["img_embeds"] = rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-9)).item()
+
+
+def _lm_serve() -> None:
+    """glm4-9b at full width served through ``launch/serve.py::_decode_demo``
+    on the card: init on the device, a warm-up demo, the measured demo, the
+    decode/teacher-forcing gate, and one decode step under the profiler."""
+    import argparse
+
+    from repro_torch.configs import registry as creg
+    from repro_torch.launch.serve import _decode_demo
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_flatten, tree_size
+
+    cfg = creg.get_config(LM_SERVE_ARCH, reduced=LM_SERVE_REDUCED)
+    md = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = md.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tree_size(params)
+    if n_params != cfg.param_count():
+        fail(f"lm serve {cfg.name}: {n_params} parameters, param_count() {cfg.param_count()}")
+    leaves = tree_flatten(params)[0]
+    if any(x.device.type != "cuda" for x in leaves):
+        fail(f"lm serve {cfg.name}: parameters off the card")
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"lm serve {cfg.name} (L={cfg.n_layers}, d_model={cfg.d_model}, "
+          f"{cfg.n_heads}H/{cfg.n_kv}KV×{cfg.hd}, d_ff={cfg.d_ff}, vocab={cfg.vocab}, "
+          f"{cfg.param_dtype}): {n_params:,} parameters, {param_bytes / 1e9:.3f} GB, "
+          f"init on the card {init_s:.3f} s, peak {init_peak / 1e9:.3f} GB")
+
+    warm = argparse.Namespace(batch=LM_BATCH, prompt_len=LM_PROMPT, new_tokens=2, seed=1)
+    _decode_demo(md, cfg, params, warm)
+    args = argparse.Namespace(batch=LM_BATCH, prompt_len=LM_PROMPT, new_tokens=LM_NEW_TOKENS,
+                              seed=0)
+    out = _decode_demo(md, cfg, params, args)
+    steps = LM_NEW_TOKENS - 1
+    if not all(bool(torch.isfinite(x).all()) for x in out["decode_logits"]):
+        fail(f"lm serve {cfg.name}: non-finite decode logits")
+    # the first decode step against a teacher-forced prefill of the prompt
+    # plus the token the prefill chose
+    prompt = out["batch"]["tokens"]
+    first = torch.as_tensor(out["generated"][:, :1], device=prompt.device, dtype=prompt.dtype)
+    with torch.no_grad():
+        forced, _ = md.prefill(params, {**out["batch"],
+                                        "tokens": torch.cat([prompt, first], dim=1)})
+    rel = _rel_err(out["decode_logits"][0], forced)
+    if not rel < LM_TF_REL:
+        fail(f"lm serve {cfg.name}: decode/teacher-forced relative error {rel:.3g}")
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = out["decode_s"] * 1e3 / steps
+    # bytes a decode step must move: every parameter but the embedding
+    # table's unread rows, and the caches read and written
+    table = params["embed"]["table"]
+    step_bytes = (param_bytes - table.numel() * table.element_size()
+                  + LM_BATCH * cfg.d_model * table.element_size())
+    cap = LM_PROMPT + 128  # the prefill's ring capacity (PREFILL_HEADROOM)
+    step_bytes += 2 * 2 * cfg.n_layers * LM_BATCH * cap * cfg.n_kv * cfg.hd * 4
+    res = {
+        "arch": cfg.name, "params": n_params, "param_gb": param_bytes / 1e9,
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW_TOKENS,
+        "init_s": init_s, "prefill_ms": out["prefill_s"] * 1e3,
+        "capture_ms": out["capture_s"] * 1e3, "decode_ms_per_token": decode_ms,
+        "decode_tokens_per_s": LM_BATCH * steps / out["decode_s"],
+        "decode_bound_ms_param_bytes": param_bytes / PEAK_BYTES_PER_S * 1e3,
+        "decode_bound_ms_step_bytes": step_bytes / PEAK_BYTES_PER_S * 1e3,
+        "peak_gb": peak / 1e9, "teacher_forced_rel_err": rel,
+    }
+    print(f"lm serve {cfg.name}: decode vs teacher-forced prefill relative error {rel:.3g} "
+          f"(bar {LM_TF_REL:g}); " + json.dumps(res))
+
+    # the same step eager (no graph): ms a token over a few steps, then one
+    # step under the profiler, for the device's busy share and launches
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        _, cache = md.prefill(params, out["batch"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_EAGER_STEPS):
+            _, step_cache = md.decode(params, cache, first)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / LM_EAGER_STEPS
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            md.decode(params, cache, first)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"lm serve eager decode (no graph): {eager_ms:.3f} ms a token over "
+          f"{LM_EAGER_STEPS} steps, against {decode_ms:.3f} ms replaying the graph")
+    if busy_ms == 0.0:
+        print("lm serve profile: the profiler recorded no device time (not measured)")
+    else:
+        print(f"lm serve profile, one eager decode step: wall {wall_ms:.3f} ms (profiled), "
+              f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+              f"{sum(e.count for e in kernels)} kernel launches")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    del params, out, cache, step_cache, forced, table, leaves
+    torch.cuda.empty_cache()
+
+
+def _lm_reduced() -> None:
+    """Every assigned architecture at reduced() on the card: decode against
+    teacher forcing, 8 greedy steps finite, and the card's prefill logits
+    and loss against the port's CPU run for the same parameters."""
+    import dataclasses as dc
+
+    from repro_torch.configs import registry as creg
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_map
+
+    dev = torch.device("cuda")
+    for arch in creg.ASSIGNED:
+        cfg = creg.get_config(arch, reduced=True)
+        md = get_model(cfg)
+        host = md.init(0, device="cpu")
+        params = tree_map(lambda x: x.to(dev), host)
+        data = _lm_batch(cfg, 0, LM_B, LM_S)
+        cpu_in = {key: torch.from_numpy(v) for key, v in data.items()}
+        dev_in = {key: v.to(dev) for key, v in cpu_in.items()}
+        extra = lambda d: {key: v for key, v in d.items() if key != "tokens"}  # noqa: E731
+        errs = {}
+        with torch.no_grad():
+            for tag, p_, d_ in (("cpu", host, cpu_in), ("card", params, dev_in)):
+                tk = d_["tokens"]
+                logits, _ = md.prefill(p_, {"tokens": tk[:, :-1], **extra(d_)})
+                loss = md.loss(p_, {"tokens": tk[:, :-1], "labels": tk[:, 1:], **extra(d_)})
+                errs[tag] = (logits.cpu(), loss.cpu())
+        for name, i in (("prefill logits", 0), ("loss", 1)):
+            got, want = errs["card"][i], errs["cpu"][i]
+            err = (got - want).abs().max().item()
+            if not torch.allclose(got, want, atol=1e-5, rtol=1e-5):
+                fail(f"lm {arch}: card {name} off the CPU run by {err:.3g}")
+            errs[name] = err
+        # decode against teacher forcing (MoE at capacity factor 8, as the
+        # reference test: capacity drops depend on the batch)
+        if cfg.family == "moe":
+            md = get_model(dc.replace(cfg, moe=dc.replace(cfg.moe, capacity_factor=8.0)))
+        tk = dev_in["tokens"]
+        with torch.no_grad():
+            full, _ = md.prefill(params, {"tokens": tk, **extra(dev_in)})
+            _, cache = md.prefill(params, {"tokens": tk[:, :-1], **extra(dev_in)})
+            dec, cache = md.decode(params, cache, tk[:, -1:])
+            rel = _rel_err(dec, full)
+            if not rel < LM_TF_REL:
+                fail(f"lm {arch}: decode/teacher-forced relative error {rel:.3g}")
+            tok = dec[:, -1].argmax(-1)[:, None].int()
+            for _ in range(LM_DECODE_STEPS):
+                logits, cache = md.decode(params, cache, tok)
+                if not bool(torch.isfinite(logits).all()):
+                    fail(f"lm {arch}: non-finite logits in greedy decode")
+                tok = logits[:, -1].argmax(-1)[:, None].int()
+        if int(cache["t"]) != LM_S + 1 + LM_DECODE_STEPS:
+            fail(f"lm {arch}: cache position {int(cache['t'])}")
+        print(f"lm {arch} reduced: card vs CPU max |Δ| prefill logits "
+              f"{errs['prefill logits']:.3g}, loss {errs['loss']:.3g}; decode vs teacher "
+              f"forcing {rel:.3g}; {LM_DECODE_STEPS} greedy steps finite")
+
+
+def _lm_colrel() -> tuple[dict, dict]:
+    """ColRel rounds of an LM: each kernel backend against einsum on the same
+    τ, batches and parameters.  Returns each kernel's launches over the runs
+    and the model widths D."""
+    import numpy as np
+
+    from repro_torch.bench import harness
+    from repro_torch.configs import registry as creg
+    from repro_torch.core import connectivity, opt_alpha, topology
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.kernels import relay_mix as k
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_flatten, tree_size
+
+    n = LM_FL_CLIENTS
+    conn = connectivity.heterogeneous_profile(n)
+    A = opt_alpha.optimize(conn.p, topology.ring(n, 1), sweeps=50).A
+    totals = dict.fromkeys(k.LAUNCHES, 0)
+    widths = {}
+    for arch in LM_FL_ARCHS:
+        cfg = creg.get_config(arch, reduced=True)
+        md = get_model(cfg)
+        ds = lm_tokens(4096, LM_FL_SEQ, vocab=cfg.vocab, seed=0)
+        loader = FederatedLoader(ds, iid_partition(ds, n, seed=0), seed=0)
+        batches = [loader.round_batch(LM_FL_T, LM_FL_BATCH, lm=True)
+                   for _ in range(LM_FL_ROUNDS)]
+        widths[arch] = tree_size(md.init(0))
+        runs = {}
+        for strategy, backend in (("colrel", "hopper"), ("colrel", "einsum"),
+                                  ("colrel_fused", "hopper_fused"),
+                                  ("colrel_fused", "einsum")):
+            sim = FLSimulator(md.loss, n_clients=n, strategy=strategy, A=A, p=conn.p,
+                              local_steps=LM_FL_T, relay_backend=backend)
+            params = md.init(0)
+            state = sim.init_server_state(params)
+            gen = torch.Generator(device="cuda").manual_seed(42)
+            losses, round_ms = [], []
+            torch.cuda.synchronize()
+            k.reset_launches()
+            for b in batches:
+                t0 = time.perf_counter()
+                params, state, m = sim.run_round(gen, params, state, b, LM_FL_LR)
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+            launches = dict(k.LAUNCHES)
+            kernel = BENCH_KERNEL.get(backend)
+            want = {kn: LM_FL_ROUNDS if kn == kernel else 0 for kn in launches}
+            if launches != want:
+                fail(f"lm colrel {arch} {strategy}/{backend}: launches {launches}, "
+                     f"expected {want}")
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"lm colrel {arch} {strategy}/{backend}: non-finite loss {losses}")
+            for kn in totals:
+                totals[kn] += launches[kn]
+            runs[strategy, backend] = (tree_flatten(params)[0], losses)
+            print(f"lm colrel {arch} (n={n}, D={widths[arch]:,}, T={LM_FL_T}, local batch "
+                  f"{LM_FL_BATCH}×{LM_FL_SEQ}) {strategy}/{backend}: round ms "
+                  f"{[round(x, 3) for x in round_ms]} losses {losses} launches {launches}")
+        for strategy, backend in (("colrel", "hopper"), ("colrel_fused", "hopper_fused")):
+            (pk, lk), (pe, le) = runs[strategy, backend], runs[strategy, "einsum"]
+            dp = max((x - y).abs().max().item() for x, y in zip(pk, pe))
+            dl = float(np.max(np.abs(np.subtract(lk, le))))
+            close = all(torch.allclose(x, y, rtol=harness.KERNEL_CHECK_RTOL,
+                                       atol=harness.KERNEL_CHECK_ATOL) for x, y in zip(pk, pe))
+            print(f"lm colrel {arch} {strategy}/{backend} vs einsum after {LM_FL_ROUNDS} "
+                  f"rounds: max |Δparam| {dp:.3g}, max |Δloss| {dl:.3g}")
+            if not (close and dl <= harness.KERNEL_CHECK_ATOL):
+                fail(f"lm colrel {arch} {strategy}/{backend} off einsum: {dp} {dl}")
+    return totals, widths
+
+
+def _lm_kernel_times(widths: dict) -> dict:
+    """Both kernels at the LM widths: checked against their plain versions,
+    then timed beside the plain version, the library call and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import relay_mix as k
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {"relay_mix_2d": [], "fused_aggregate_2d": []}
+    for arch in LM_FL_ARCHS:
+        n, D = LM_FL_CLIENTS, widths[arch]
+        copies = max(1, math.ceil(2 * L2_BYTES / (4 * n * D)))
+        A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
+        c = torch.randn(n, generator=gen, device=dev) / math.sqrt(n)
+        ds = [torch.randn(n, D, generator=gen, device=dev) for _ in range(copies)]
+        rows = {
+            "relay_mix_2d": (k.relay_mix_2d, ref.relay_mix_2d, torch.matmul, A,
+                             bound_ms(4 * (n * n + 2 * n * D), 2 * n * n * D)),
+            "fused_aggregate_2d": (k.fused_aggregate_2d, ref.fused_aggregate_2d,
+                                   lambda c_, d_: c_ @ d_, c,
+                                   bound_ms(4 * (n + n * D + D), 2 * n * D)),
+        }
+        for name, (kern, plain, lib, coef, (b_ms, b_by)) in rows.items():
+            err = check_close(f"{name} lm n={n} D={D}", kern(coef, ds[0]), plain(coef, ds[0]),
+                              RTOL_F32)
+            args = [(coef, d) for d in ds]
+            t = {"arch": arch, "shape": [n, D], "max_abs_err": err,
+                 "ms": device_ms(kern, args, 100), "plain_ms": device_ms(plain, args, 100),
+                 "library_ms": device_ms(lib, args, 100), "bound_ms": b_ms, "bound_by": b_by}
+            out[name].append(t)
+            print(f"time {name} lm {arch} (n={n}, D={D}, {copies} Δ copies): "
+                  + json.dumps({key: v for key, v in t.items() if key not in ("shape", "arch")}))
+        del ds
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm() -> dict:
+    """The LM model zoo and its serving path; see the module docstring for
+    the gates.  Returns each kernel's launches over the ColRel rounds and
+    the kernels' times at the LM widths."""
+    from repro_torch.kernels import relay_mix as k
+
+    t0 = time.perf_counter()
+    _lm_serve()
+    t1 = time.perf_counter()
+    _lm_reduced()
+    t2 = time.perf_counter()
+    k.reset_launches()
+    launches, widths = _lm_colrel()
+    t3 = time.perf_counter()
+    times = _lm_kernel_times(widths)
+    print(f"lm phase: serve {t1 - t0:.1f} s, reduced archs {t2 - t1:.1f} s, colrel "
+          f"{t3 - t2:.1f} s, kernel times {time.perf_counter() - t3:.1f} s")
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     phase_device()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1499,9 +1856,11 @@ def main() -> int:
     service_launches = phase_service()
     t_dist = time.perf_counter()
     dist_launches = phase_distributed()
+    t_lm = time.perf_counter()
+    lm = phase_lm()
     print(f"phases: sparse {t_async - t_sparse:.1f} s, async {t_service - t_async:.1f} s, "
-          f"service {t_dist - t_service:.1f} s, distributed "
-          f"{time.perf_counter() - t_dist:.1f} s")
+          f"service {t_dist - t_service:.1f} s, distributed {t_lm - t_dist:.1f} s, "
+          f"lm {time.perf_counter() - t_lm:.1f} s")
     launches = {"relay_mix_2d": runs["colrel/hopper"]["launches"]["relay_mix_2d"],
                 "fused_aggregate_2d":
                     runs["colrel_fused/hopper_fused"]["launches"]["fused_aggregate_2d"]}
@@ -1531,6 +1890,7 @@ def main() -> int:
                 "async": async_launches[name],
                 "service": service_launches[name],
                 "distributed": dist_launches[name],
+                "lm": lm["launches"][name],
             },
             "max_abs_err": kern["main_err"][e],
             "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL_F32},
@@ -1550,6 +1910,7 @@ def main() -> int:
                      "max_abs_err": kern["mesh_err"][e]},
             **({"sparse": kern["timing"][name]["sparse"]}
                if "sparse" in kern["timing"][name] else {}),
+            "lm": lm["times"][name],
         })
     print(f"total {time.perf_counter() - t0:.1f} s after the device check")
     print(json.dumps({"kernels": kernels}))

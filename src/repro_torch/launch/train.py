@@ -1,5 +1,9 @@
 """Continuous-training service: stream federated rounds, publish snapshots.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b --reduced \
+        --rounds 50 --engine async --delay poisson --publish-every 10 \
+        --ckpt-dir checkpoints [--device cpu]
+
 :class:`ContinuousTrainer` drives any of the round engines (per-round loop,
 epoch engine, pipelined engine, or the asynchronous staleness-weighted
 engine) over a :class:`~repro_torch.channels.ChannelSchedule` in
@@ -21,10 +25,14 @@ restarts with an empty arrival buffer (in-flight updates are lost on a
 crash — the production semantic), so its resumed stream is statistically,
 not bitwise, continuous.
 
-The JAX package's command line builds its LM model zoo and refuses
-ResNet-20; it comes with the slice that ports that zoo.
+The command line (:func:`main`) trains an LM of the model zoo with ColRel
+through this trainer; it runs on the GPU unless ``--device cpu`` is given.
+``--rounds 0`` streams indefinitely.
 """
 from __future__ import annotations
+
+import argparse
+import time
 
 import numpy as np
 import torch
@@ -210,3 +218,138 @@ def build_connectivity(profile: str, n: int, p_hom: float):
     if profile == "paper" and n == 10:
         return connectivity.paper_heterogeneous()
     return connectivity.heterogeneous_profile(n)
+
+
+# ------------------------------------------------------------------ the CLI
+
+
+def main(argv=None) -> None:
+    from repro_torch import channels
+    from repro_torch.channels.delay import make_delays
+    from repro_torch.configs import registry as creg
+    from repro_torch.core import opt_alpha
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition, sort_and_partition
+    from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.models import registry as mreg
+    from repro_torch.optim.sgd import ClientOpt
+    from repro_torch.utils import resolve_device
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-14b", choices=sorted(creg.ARCHS))
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--rounds", type=int, default=50,
+                    help="0 = stream indefinitely (Ctrl-C to stop)")
+    ap.add_argument("--clients", type=int, default=10)
+    ap.add_argument("--local-steps", type=int, default=4)
+    ap.add_argument("--local-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.1)
+    ap.add_argument("--strategy", default="colrel_fused",
+                    choices=["colrel_fused", "fedavg_blind", "no_dropout"])
+    ap.add_argument("--engine", default="loop", choices=list(ENGINES))
+    ap.add_argument("--chunk", type=int, default=32)
+    ap.add_argument("--delay", default="none",
+                    choices=["none", "poisson", "geometric"])
+    ap.add_argument("--delay-rate", type=float, default=1.0)
+    ap.add_argument("--delay-max", type=int, default=8)
+    ap.add_argument("--staleness-decay", type=float, default=0.8)
+    ap.add_argument("--buffer-k", type=int, default=0)
+    ap.add_argument("--topology", default="ring")
+    ap.add_argument("--topology-k", type=int, default=1)
+    ap.add_argument("--p-profile", default="heterogeneous",
+                    choices=["homogeneous", "heterogeneous", "paper"])
+    ap.add_argument("--p", type=float, default=0.2, help="homogeneous p")
+    ap.add_argument("--non-iid", action="store_true")
+    ap.add_argument("--server-momentum", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--publish-every", type=int, default=0)
+    ap.add_argument("--keep", type=int, default=3)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest snapshot in --ckpt-dir")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None, help="default: the GPU")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    n = args.clients
+    cfg = creg.get_config(args.arch, reduced=args.reduced)
+    if cfg.family == "resnet":
+        raise SystemExit("use benchmarks/fig*.py for the resnet paper runs")
+    md = mreg.get_model(cfg)
+
+    conn = build_connectivity(args.p_profile, n, args.p)
+    adj = build_topology(args.topology, n, args.topology_k)
+    res = opt_alpha.optimize(conn.p, adj, sweeps=50)
+    print(f"OPT-α: S {res.S_history[0]:.3f} -> {res.S_history[-1]:.3f} "
+          f"({res.sweeps} sweeps, feasible={res.feasible_columns.all()})")
+
+    ds = lm_tokens(4096, args.seq_len, vocab=cfg.vocab, seed=args.seed)
+    parts = (sort_and_partition(ds, n, seed=args.seed) if args.non_iid
+             else iid_partition(ds, n, seed=args.seed))
+    loader = FederatedLoader(ds, parts, seed=args.seed)
+
+    sim = FLSimulator(
+        md.loss, n_clients=n, strategy=args.strategy, A=res.A, p=conn.p,
+        local_steps=args.local_steps,
+        client_opt=ClientOpt(kind="sgd", weight_decay=1e-4),
+        server_opt=ServerOpt(momentum=args.server_momentum),
+        device=device,
+    )
+    trainer = ContinuousTrainer(
+        sim,
+        schedule=channels.StaticChannel(adj, conn.p),
+        next_batch=lambda: loader.round_batch(
+            args.local_steps, args.local_batch, lm=True
+        ),
+        lr=args.lr,
+        engine=args.engine,
+        chunk=args.chunk,
+        delays=make_delays(args.delay, n, rate=args.delay_rate,
+                           max_delay=args.delay_max, seed=args.seed + 11),
+        staleness_decay=args.staleness_decay,
+        buffer_k=args.buffer_k,
+        ckpt_dir=args.ckpt_dir or None,
+        publish_every=args.publish_every,
+        keep=args.keep,
+        metadata={"arch": args.arch, "strategy": args.strategy},
+    )
+    trainer.init(md.init(args.seed, device=device),
+                 torch.Generator(device=device).manual_seed(args.seed + 1))
+    if args.resume and trainer.restore_latest():
+        print(f"resumed from round {trainer.round}; replaying the stream")
+        trainer.advance_stream()
+
+    t0 = time.time()
+
+    def log_burst(metrics, base_round):
+        losses = np.asarray(metrics["loss"])
+        for i, loss in enumerate(losses):
+            r = base_round + i
+            if r % args.log_every == 0 or i == len(losses) - 1:
+                print(f"round {r:4d} loss={float(loss):.4f} "
+                      f"({time.time()-t0:.1f}s)")
+
+    def on_publish(path, rnd):
+        print(f"published {path} @ round {rnd}")
+
+    try:
+        if args.rounds > 0:
+            base = trainer.round
+            metrics = trainer.run(args.rounds, on_publish=on_publish)
+            log_burst(metrics, base)
+        else:
+            burst = args.publish_every or args.log_every
+            while True:
+                base = trainer.round
+                metrics = trainer.run(burst, on_publish=on_publish)
+                log_burst(metrics, base)
+    except KeyboardInterrupt:
+        print(f"interrupted at round {trainer.round}")
+
+
+if __name__ == "__main__":
+    main()

@@ -552,3 +552,144 @@ def test_sharded_step_over_nccl_on_card(dev, tmp_path):
     torch.testing.assert_close(ring[1]["x"], ref[1]["x"], atol=1e-5, rtol=1e-5)
     for out in (gather, ring):
         assert torch.equal(out[0].get_state(), ref[0].get_state())
+
+
+# ------------------------------------------------------------- the LM zoo
+
+LM_ARCHS = ["qwen3-14b", "recurrentgemma-9b", "mixtral-8x22b", "qwen2.5-32b", "whisper-tiny",
+            "falcon-mamba-7b", "grok-1-314b", "qwen1.5-32b", "glm4-9b",
+            "llama-3.2-vision-11b"]
+
+
+def _lm_data(cfg, B=2, S=96, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32))}
+    if cfg.family == "audio":
+        out["frame_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        out["img_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_reduced_on_card_matches_cpu_and_teacher_forcing(dev, arch):
+    """reduced() on the card: prefill logits and loss within atol 1e-5 +
+    rtol 1e-5 of the CPU run for the same parameters; decode within the
+    reference's 2e-3 of teacher forcing (MoE at capacity factor 8); 8
+    greedy decode steps finite."""
+    import dataclasses
+
+    from repro_torch.configs import registry as creg
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_map
+
+    cfg = creg.get_config(arch, reduced=True)
+    md = get_model(cfg)
+    host = md.init(0, device="cpu")
+    params = tree_map(lambda x: x.to(dev), host)
+    data = _lm_data(cfg)
+    rest = {key: v for key, v in data.items() if key != "tokens"}
+    tk = data["tokens"]
+    outs = []
+    with torch.no_grad():
+        for p_, where in ((host, "cpu"), (params, dev)):
+            ex = {key: v.to(where) for key, v in rest.items()}
+            t_ = tk.to(where)
+            logits, _ = md.prefill(p_, {"tokens": t_[:, :-1], **ex})
+            loss = md.loss(p_, {"tokens": t_[:, :-1], "labels": t_[:, 1:], **ex})
+            outs.append((logits.cpu(), loss.cpu()))
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    if cfg.family == "moe":
+        md = get_model(dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0)))
+    ex = {key: v.to(dev) for key, v in rest.items()}
+    tk = tk.to(dev)
+    with torch.no_grad():
+        full, _ = md.prefill(params, {"tokens": tk, **ex})
+        _, cache = md.prefill(params, {"tokens": tk[:, :-1], **ex})
+        dec, cache = md.decode(params, cache, tk[:, -1:])
+        rel = (full - dec).abs().max() / full.abs().max()
+        assert rel < 2e-3
+        tok = dec[:, -1].argmax(-1)[:, None]
+        for _ in range(8):
+            dec, cache = md.decode(params, cache, tok)
+            assert torch.isfinite(dec).all()
+            tok = dec[:, -1].argmax(-1)[:, None]
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "mixtral-8x22b"])
+def test_lm_colrel_rounds_kernels_match_einsum_on_card(dev, arch):
+    """Two ColRel rounds of the LM at reduced() (n = 10, T = 2): each kernel
+    backend within 1e-5 of einsum on the same τ and batches, its kernel
+    launched once a round."""
+    import numpy as np
+
+    from repro_torch.configs import registry as creg
+    from repro_torch.core import connectivity, opt_alpha, topology
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_flatten
+
+    n, T, rounds = 10, 2, 2
+    cfg = creg.get_config(arch, reduced=True)
+    md = get_model(cfg)
+    conn = connectivity.heterogeneous_profile(n)
+    A = opt_alpha.optimize(conn.p, topology.ring(n, 1), sweeps=50).A
+    ds = lm_tokens(512, 64, vocab=cfg.vocab, seed=0)
+    loader = FederatedLoader(ds, iid_partition(ds, n, seed=0), seed=0)
+    batches = [loader.round_batch(T, 4, lm=True) for _ in range(rounds)]
+    runs = {}
+    for strategy, backend in (("colrel", "hopper"), ("colrel", "einsum"),
+                              ("colrel_fused", "hopper_fused"), ("colrel_fused", "einsum")):
+        sim = FLSimulator(md.loss, n_clients=n, strategy=strategy, A=A, p=conn.p,
+                          local_steps=T, relay_backend=backend, device=dev)
+        params = md.init(0, device=dev)
+        state = sim.init_server_state(params)
+        gen = torch.Generator(device=dev).manual_seed(42)
+        k.reset_launches()
+        for b in batches:
+            params, state, m = sim.run_round(gen, params, state, b, 0.1)
+            assert np.isfinite(float(m["loss"]))
+        kernel = {"hopper": "relay_mix_2d", "hopper_fused": "fused_aggregate_2d"}.get(backend)
+        assert k.LAUNCHES == {kn: rounds if kn == kernel else 0 for kn in k.LAUNCHES}
+        runs[strategy, backend] = tree_flatten(params)[0]
+    for strategy, backend in (("colrel", "hopper"), ("colrel_fused", "hopper_fused")):
+        for x, y in zip(runs[strategy, backend], runs[strategy, "einsum"]):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_decode_graph_matches_eager_on_card(dev, arch):
+    """The serving demo's decode step captured as a CUDA graph: 4 replays
+    give the eager step's logits and cache (atol 1e-5 + rtol 1e-5), fed
+    back step to step as the demo feeds them."""
+    from repro_torch.configs import registry as creg
+    from repro_torch.launch.serve import _DecodeGraph
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_flatten
+
+    cfg = creg.get_config(arch, reduced=True)
+    md = get_model(cfg)
+    params = md.init(0, device=dev)
+    data = {key: v.to(dev) for key, v in _lm_data(cfg, S=40).items()}
+    with torch.no_grad():
+        _, cache = md.prefill(params, {**data, "tokens": data["tokens"][:, :-1]})
+        tok = data["tokens"][:, -1:].long()
+        graph = _DecodeGraph(md, params, cache, tok)
+        eager_cache, graph_cache, eager_tok, graph_tok = cache, cache, tok, tok
+        for _ in range(4):
+            want, eager_cache = md.decode(params, eager_cache, eager_tok)
+            got, graph_cache = graph(graph_cache, graph_tok)
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            for x, y in zip(tree_flatten(graph_cache)[0], tree_flatten(eager_cache)[0]):
+                torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
+            eager_tok = want[:, -1].argmax(-1)[:, None]
+            graph_tok = got[:, -1].argmax(-1)[:, None]

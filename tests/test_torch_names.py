@@ -16,27 +16,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 REF, PORT = ROOT / "repro", ROOT / "repro_torch"
 
 # Reference modules with no counterpart yet, by the step that ports them
-STEP15_LM_ZOO = {
-    "configs/registry.py", "configs/falcon_mamba_7b.py", "configs/glm4_9b.py",
-    "configs/grok_1_314b.py", "configs/llama_3_2_vision_11b.py",
-    "configs/mixtral_8x22b.py", "configs/qwen1_5_32b.py", "configs/qwen2_5_32b.py",
-    "configs/qwen3_14b.py", "configs/recurrentgemma_9b.py", "configs/whisper_tiny.py",
-    "models/attention.py", "models/common.py", "models/mamba.py", "models/moe.py",
-    "models/registry.py", "models/rglru.py", "models/stacks.py",
-}
 STEP16_XLA_TOOLING = {"launch/attribute.py", "launch/dryrun.py", "launch/hlo_cost.py",
                       "sharding/hints.py"}
-MODULES_NOT_YET_PORTED = STEP15_LM_ZOO | STEP16_XLA_TOOLING
+MODULES_NOT_YET_PORTED = STEP16_XLA_TOOLING
 
 # Names missing from a ported module, by module
 NAMES_NOT_YET_PORTED = {
-    # step 15: the LM config classes and input shapes, the model registry,
-    # the two service command lines and the decode demo
-    "configs/base.py": {"MoEConfig", "SSMConfig", "RGLRUConfig", "ShapeConfig",
-                        "INPUT_SHAPES"},
-    "models/__init__.py": {"ModelDef", "get_model", "input_specs"},
-    "launch/train.py": {"main"},
-    "launch/serve.py": {"main", "_decode_demo"},
     # never: the Pallas tile width of the TPU kernels (the CUDA kernels pick
     # their own tiles; likewise the block_d/interpret parameters, which are
     # not top-level names)
@@ -47,13 +32,6 @@ MEMBERS_NOT_YET_PORTED = {
     ("fl/engine.py", "EpochScanEngine"): {"trace_count"},
     ("fl/engine.py", "PipelinedScanEngine"): {"trace_count"},
     ("fl/engine.py", "ShardedScanEngine"): {"trace_count"},
-    # step 15: the LM fields of the model config
-    ("configs/base.py", "ModelConfig"): {
-        "act", "active_param_count", "cross_attn_every", "d_ff", "enc_dec", "enc_frames",
-        "hd", "head_dim", "long_context_window", "mlp_gated", "moe", "n_enc_layers",
-        "n_heads", "n_image_tokens", "n_kv", "norm_eps", "param_count", "qk_norm",
-        "qkv_bias", "rglru", "rope_theta", "rotary_pct", "sliding_window", "ssm",
-        "tie_embeddings"},
 }
 
 REF_MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py"))
