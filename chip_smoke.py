@@ -32,15 +32,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
             through ``run_rounds_loop``, ``EpochScanEngine`` and
             ``PipelinedScanEngine`` (inline and threaded prefetch), 12 rounds
             a run, for colrel on ``hopper`` and colrel_fused on
-            ``hopper_fused``.  Gates: each
+            ``hopper_fused``.  The engines replay their full chunks from
+            CUDA graphs and run the remainders eagerly.  Gates: each
             engine bitwise equal to its loop (params, server state, per-round
             loss/τ/delta_norm, generator state); the engines' scheduler
             stats equal to each other and their solves to the loop's; each
-            kernel launched once a round on its backend and never on the
-            other; the pipelined engine's dispatches equal to its chunks;
+            kernel launched once a round on its backend (replays counted)
+            and never on the other; trace_count in 1..2, replays equal to
+            the full chunks and replays + eager chunks to all chunks; the
+            pipelined engine's dispatches equal to its chunks;
             finite losses and params; a churned round whose inactive τ reads
-            0.  Prints ms a round after the first chunk, the prefetch
-            overlap, the epochs and the OPT-α solves.
+            0.  Prints ms a round, the captures, the prefetch
+            overlap, the epochs and the OPT-α solves.  Then the timing run:
+            one 16-round epoch of the same model in chunks of 4 on each
+            kernel backend, eager and replayed (3 timed runs each, replayed
+            bitwise equal to eager); prints ms a round each way, the
+            capture's ms, the graph pool beside one round's activations and
+            the device busy share of one replayed chunk (profiler).
 6. bench    the bench harness (``repro_torch.bench.run_scenario``) on three
             registered scenarios at their registered size: bench_smoke (the
             MLP under Markov fading and p drift, 8-round epochs in chunks of
@@ -52,8 +60,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
             |Δ| ≤ 1e-5; model_params equal to the JAX package's recorded
             sizes; each kernel launched once a round in the kernel check's
             cold and warm passes and never by the einsum engines; finite
-            losses.  Prints rounds/s and compile_s per engine, the
-            pipelined engine's overlap, the kernel check and model_params.
+            losses; no engine above 2 captures.  Prints rounds/s, compile_s
+            and trace_count per engine, the pipelined engine's overlap, the
+            kernel check and model_params.
 7. sparse   the bench harness on the cohort-sampling sweeps at their
             registered sizes: sample_sweep_smoke (n = 256), _n1e3 (8 of its
             16 rounds, for time) and _n1e4 (n = 10⁴, about 28 MB of (n, D)
@@ -112,10 +121,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
             weighted-loss step within 1e-5 of the per-client step, with no
             launch.  Then ``init_process_group("nccl", world_size=1)`` and
             ``ShardedScanEngine`` 8 rounds under the Fig. 6 channel with
-            churn at lr 1e-3: gather on ``hopper_fused`` bitwise equal to the
-            single-device fused engine (the fused scan step an epoch), ring
+            churn at lr 1e-3, each epoch captured as a CUDA graph (NCCL
+            collectives inside): gather on ``hopper_fused`` bitwise equal
+            to the same engine eager and to the single-device fused engine
+            (the fused scan step an epoch), ring
             and shard="d" on ``einsum`` within the harness tolerance, each
-            with the fused engine's generator state and one call an epoch;
+            with the fused engine's generator state and one call an epoch,
+            trace_count the distinct (epoch length, masked) pairs (0 eager);
             the single-device loop bitwise equal to the fused engine.  Then
             the bench harness on ``mesh_corr_500`` (100 of its 500 rounds)
             with a ``hopper_fused`` kernel check: the three mesh steps
@@ -193,8 +205,11 @@ PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
 
 # engines phase: the Fig. 6 channel at a coherence of a few rounds, so that
 # 12 rounds cross epochs of unequal length (6, 2 and 4) and chunk 4 leaves
-# remainders (20 rounds until the service phase came; cut for time)
+# remainders (20 rounds until the service phase came; cut for time).  The
+# timing run: one 16-round epoch in chunks of 4 (every chunk full, so every
+# chunk replays), eager and replayed, 3 timed runs each
 ENGINE_ROUNDS, ENGINE_CHUNK = 12, 4
+TIMING_ROUNDS, TIMING_CHUNK, TIMING_RUNS = 16, 4, 3
 
 # bench phase: the registered scenarios it runs, and the model sizes the
 # JAX package recorded for them (BENCH_resnet20_cifar.json,
@@ -505,6 +520,21 @@ def phase_kernels() -> dict:
     return {"worst": worst, "main_err": main_err, "mesh_err": mesh_err, "timing": timing}
 
 
+def device_busy_ms(prof) -> tuple[float, int]:
+    """The device's busy ms in a profile: the union of the device
+    activities' intervals (kernels, copies, sets), each instant counted
+    once; and the number of activities.  (Summing the kernels' own times
+    over-counts a CUDA graph replay, whose kernels the profiler also lists
+    under the graph launch.)"""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy_us / 1e3, len(spans)
+
+
 def profile_round(sim, params, state, batch, lr) -> None:
     """One more round under torch.profiler: device busy share and the
     kernels that take the device time (after the counted runs, so its
@@ -525,9 +555,10 @@ def profile_round(sim, params, state, batch, lr) -> None:
         print("profile: the profiler recorded no device time (not measured)")
         return
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    busy_ms, _ = device_busy_ms(prof)
     print(f"profile colrel_fused/hopper_fused round: wall {wall_ms:.3f} ms (profiled), "
-          f"device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
-          f"{sum(e.count for e in kernels)} kernel launches")
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%; kernel times "
+          f"summed {device_ms:.3f} ms), {sum(e.count for e in kernels)} kernel launches")
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
@@ -674,9 +705,10 @@ def phase_engines() -> dict:
     segs = list(schedule().segments(ENGINE_ROUNDS))
     lengths = [s.n_rounds for s in segs]
     chunks = sum(math.ceil(n / ENGINE_CHUNK) for n in lengths)
+    full_chunks = sum(n // ENGINE_CHUNK for n in lengths)
     print(f"engines: {len(segs)} epochs of lengths {lengths} in {ENGINE_ROUNDS} rounds, "
-          f"{chunks} chunks of at most {ENGINE_CHUNK}")
-    if len(segs) < 3 or all(n % ENGINE_CHUNK == 0 for n in lengths):
+          f"{chunks} chunks of at most {ENGINE_CHUNK}, {full_chunks} of them full")
+    if len(segs) < 3 or all(n % ENGINE_CHUNK == 0 for n in lengths) or not full_chunks:
         fail(f"engines: epochs {lengths} give no multi-epoch run with remainder chunks")
     ds = cifar_like(N_TRAIN, seed=0)
     parts = iid_partition(ds, N_CLIENTS, seed=0)
@@ -693,18 +725,6 @@ def phase_engines() -> dict:
             sim = FLSimulator(loss_fn, n_clients=N_CLIENTS, strategy=strategy,
                               local_steps=LOCAL_STEPS, relay_backend=backend,
                               server_opt=ServerOpt(momentum=0.5))
-            # an event after every round (no sync): device timestamps for the
-            # first chunk's end
-            events, round_math = [], sim.round_math
-
-            def timed_round_math(*args, _f=round_math, _ev=events):
-                res = _f(*args)
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                _ev.append(ev)
-                return res
-
-            sim.round_math = timed_round_math
             policy = channels.AdaptiveOptAlpha(sweeps=40, warm_sweeps=12)
             loader = FederatedLoader(ds, parts, seed=0)
             params = init_resnet20(0, CONFIG)
@@ -714,14 +734,13 @@ def phase_engines() -> dict:
                       next_batch=lambda: loader.round_batch(LOCAL_STEPS, LOCAL_BATCH))
             eng = None
             torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
             k.reset_launches()
             t0 = time.perf_counter()
-            start.record()
             if engine == "loop":
                 res = run_rounds_loop(sim, gen, params, state, **kw)
             elif engine == "scan":
-                res = EpochScanEngine(sim, chunk=ENGINE_CHUNK).run_schedule(gen, params, state, **kw)
+                eng = EpochScanEngine(sim, chunk=ENGINE_CHUNK)
+                res = eng.run_schedule(gen, params, state, **kw)
             else:
                 eng = PipelinedScanEngine(sim, chunk=ENGINE_CHUNK,
                                           prefetch=engine.removeprefix("pipelined_"))
@@ -730,16 +749,23 @@ def phase_engines() -> dict:
             total_ms = (time.perf_counter() - t0) * 1e3
             launches = dict(k.LAUNCHES)
             params, state, metrics, gen = res
-            first_ms = start.elapsed_time(events[ENGINE_CHUNK - 1])
             tag = f"{strategy}/{backend} {engine}"
             run = {"params": params, "state": state, "metrics": metrics,
                    "gen": gen.get_state(), "stats": policy.stats, "launches": launches}
-            ms_a_round = (total_ms - first_ms) / (ENGINE_ROUNDS - ENGINE_CHUNK)
-            line = (f"engines {tag}: {ms_a_round:.3f} ms a round "
-                    f"after the first chunk ({total_ms:.3f} ms in all, first chunk "
-                    f"{first_ms:.3f} ms); OPT-α solves {policy.stats.solves}, cache hits "
-                    f"{policy.stats.cache_hits}; launches {launches}")
+            line = (f"engines {tag}: {total_ms / ENGINE_ROUNDS:.3f} ms a round over "
+                    f"{ENGINE_ROUNDS} rounds, first calls and captures included; OPT-α "
+                    f"solves {policy.stats.solves}, cache hits {policy.stats.cache_hits}; "
+                    f"launches {launches}")
             if eng is not None:
+                # full chunks replayed from CUDA graphs, remainders eager
+                line += (f"; trace_count {eng.trace_count}, replays {eng.replays}, "
+                         f"eager_chunks {eng.eager_chunks}")
+                if not 0 < eng.trace_count <= 2:
+                    fail(f"{tag}: trace_count {eng.trace_count} not in 1..2")
+                if eng.replays + eng.eager_chunks != chunks or eng.replays != full_chunks:
+                    fail(f"{tag}: {eng.replays} replays + {eng.eager_chunks} eager chunks "
+                         f"for {chunks} chunks, {full_chunks} of them full")
+            if isinstance(eng, PipelinedScanEngine):
                 st = eng.prefetch_stats
                 # host staging a chunk after the pipeline fill, and the part
                 # of it the consumer waited for
@@ -796,7 +822,111 @@ def phase_engines() -> dict:
                 fail(f"engines {strategy}: round {r} reports τ {tau[r]} for inactive clients")
         launches_total[kernel] = sum(run["launches"][kernel] for run in runs.values())
     print(f"engines: {len(churned)} of {ENGINE_ROUNDS} rounds churned; inactive τ reported 0")
+    for kn, n in engine_timing().items():
+        launches_total[kn] = launches_total.get(kn, 0) + n
     return launches_total
+
+
+def engine_timing() -> dict:
+    """The timing run of the engines phase: one channel epoch of
+    ``TIMING_ROUNDS`` rounds of ResNet-20/GN at n = 10 through
+    ``EpochScanEngine.run_segment`` in chunks of ``TIMING_CHUNK`` on each
+    kernel backend, eager (``capture=False``, after one warm-up run) and
+    replayed (the first run captures), ``TIMING_RUNS`` timed runs each, on
+    the same batches and τ.  Gates: the replayed runs bitwise equal to the
+    eager ones, one capture, every chunk replayed.  Prints ms a round
+    (median), the capture's ms, the graph pool's bytes beside one eager
+    round's peak activations, and the device busy share of one replayed
+    chunk under the profiler.  Returns each kernel's launches."""
+    import statistics
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.core import connectivity, opt_alpha, topology
+    from repro_torch.data.loader import FederatedLoader
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import cifar_like
+    from repro_torch.fl.engine import EpochScanEngine
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.kernels import relay_mix as k
+    from repro_torch.models.resnet import init_resnet20, resnet20_loss
+
+    p = connectivity.paper_heterogeneous().p
+    A = opt_alpha.optimize(p, topology.ring(N_CLIENTS, k=1), sweeps=50).A
+    ds = cifar_like(N_TRAIN, seed=0)
+    loader = FederatedLoader(ds, iid_partition(ds, N_CLIENTS, seed=0), seed=0)
+    host = [loader.round_batch(LOCAL_STEPS, LOCAL_BATCH) for _ in range(TIMING_ROUNDS)]
+    batches = {key: torch.as_tensor(np.stack([b[key] for b in host]), device="cuda")
+               for key in host[0]}
+    params0 = init_resnet20(0, CONFIG)
+    launches = dict.fromkeys(k.LAUNCHES, 0)
+    for strategy, backend in (("colrel", "hopper"), ("colrel_fused", "hopper_fused")):
+        sim = FLSimulator(lambda prm, b: resnet20_loss(prm, CONFIG, b), n_clients=N_CLIENTS,
+                          strategy=strategy, A=A, p=p, local_steps=LOCAL_STEPS,
+                          relay_backend=backend)
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        taus = torch.stack([sim.sample_tau(gen) for _ in range(TIMING_ROUNDS)])
+        state = sim.init_server_state(params0)
+
+        def once(eng, rounds=TIMING_ROUNDS):
+            sub = {key: x[:rounds] for key, x in batches.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run_segment(params0, state, sub, taus[:rounds], LR)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, res
+
+        k.reset_launches()
+        eager = EpochScanEngine(sim, chunk=TIMING_CHUNK, capture=False)
+        once(eager)  # warm-up: cuDNN's, cuBLAS's and torch.func's first calls
+        eager_runs = [once(eager) for _ in range(TIMING_RUNS)]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        once(eager, 1)
+        round_peak = torch.cuda.max_memory_allocated() - base
+        graphed = EpochScanEngine(sim, chunk=TIMING_CHUNK)
+        reserved = torch.cuda.memory_reserved()
+        first_ms, first = once(graphed)
+        pool = torch.cuda.memory_reserved() - reserved
+        replay_runs = [once(graphed) for _ in range(TIMING_RUNS)]
+        for kn in launches:
+            launches[kn] += k.LAUNCHES[kn]
+        tag = f"{strategy}/{backend}"
+        for _, (rp, rs, rm) in [(first_ms, first)] + replay_runs:
+            if not (_bitwise_equal(rp, eager_runs[0][1][0]) and _bitwise_equal(rm, eager_runs[0][1][2])):
+                fail(f"engine timing {tag}: a replayed run differs from the eager run")
+        if (graphed.trace_count, graphed.eager_chunks) != (1, 0):
+            fail(f"engine timing {tag}: trace_count {graphed.trace_count}, eager chunks "
+                 f"{graphed.eager_chunks}; expected 1 capture and every chunk replayed")
+        eager_ms = statistics.median(t for t, _ in eager_runs) / TIMING_ROUNDS
+        replay_ms = statistics.median(t for t, _ in replay_runs) / TIMING_ROUNDS
+        capture_ms = first_ms - replay_ms * TIMING_ROUNDS
+        # one replayed chunk under the profiler (after the counted runs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            once(graphed, TIMING_CHUNK)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, n_act = device_busy_ms(prof)
+        busy = (f"device busy {busy_ms:.3f} of {wall_ms:.3f} ms "
+                f"({100 * busy_ms / wall_ms:.1f}%, {n_act} device activities) in one "
+                f"replayed chunk of {TIMING_CHUNK} rounds (profiled)" if busy_ms else
+                "device busy share of a replayed chunk: not measured (the profiler "
+                "recorded no device time)")
+        print(f"engine timing {tag} (ResNet-20/GN, n = {N_CLIENTS}, one {TIMING_ROUNDS}-round "
+              f"epoch in chunks of {TIMING_CHUNK}, median of {TIMING_RUNS}): eager "
+              f"{eager_ms:.3f} ms a round {[round(t / TIMING_ROUNDS, 3) for t, _ in eager_runs]}, "
+              f"replayed {replay_ms:.3f} ms a round "
+              f"{[round(t / TIMING_ROUNDS, 3) for t, _ in replay_runs]} "
+              f"({eager_ms / replay_ms:.2f}x); capture {capture_ms:.3f} ms "
+              f"({capture_ms / (eager_ms * TIMING_CHUNK):.2f} eager chunks); graph pool "
+              f"{pool / 1e6:.1f} MB beside {round_peak / 1e6:.1f} MB of one eager round's peak "
+              f"activations; {busy}; replayed bitwise equal to eager")
+        del eager, graphed, eager_runs, replay_runs, first
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_bench() -> dict:
@@ -828,6 +958,8 @@ def phase_bench() -> dict:
         for engine, run in runs.items():
             if run.kernel_launches != (want if engine.startswith("scan_") else none):
                 fail(f"bench {name} {engine}: kernel launches {run.kernel_launches}")
+            if run.trace_count is not None and run.trace_count > 2:
+                fail(f"bench {name} {engine}: trace_count {run.trace_count} > 2")
             if not all(math.isfinite(x) for x in run.losses):
                 fail(f"bench {name} {engine}: non-finite loss {run.losses}")
         if kernel is not None and not (check and check["allclose"]
@@ -837,7 +969,8 @@ def phase_bench() -> dict:
             fail(f"bench {name}: model_params {result['model_params']}, "
                  f"expected {BENCH_MODEL_PARAMS[name]}")
         engines = "; ".join(
-            f"{e} {r.rounds_per_sec:.3f} rounds/s compile_s {r.compile_s:.3f}"
+            f"{e} {r.rounds_per_sec:.3f} rounds/s compile_s {r.compile_s:.3f} "
+            f"trace_count {r.trace_count}"
             + ("" if r.overlap_fraction is None else
                f" overlap {r.overlap_fraction:.4f} (steady {r.steady_overlap_fraction:.4f})")
             for e, r in runs.items())
@@ -1228,7 +1361,11 @@ def phase_service() -> dict:
                 same_state(resumed, ref, res_m,
                            {key: v[SERVICE_CRASH:] for key, v in ref_m.items()},
                            f"{tag} resumed vs rounds {SERVICE_CRASH + 1}–{SERVICE_ROUNDS}")
-                print(f"service {tag}: {ms:.3f} ms a round uninterrupted, {burst_ms:.3f} "
+                captures = getattr(ref._engine, "trace_count", None)
+                if captures is not None and captures > 2:
+                    fail(f"service {tag}: trace_count {captures} > 2")
+                print(f"service {tag}: {ms:.3f} ms a round uninterrupted (trace_count "
+                      f"{captures}), {burst_ms:.3f} "
                       f"with a publish every {SERVICE_BURST}; bursts and the resume from "
                       f"round {SERVICE_CRASH} bitwise equal to one {SERVICE_ROUNDS}-round "
                       f"run (params, server state, loss/τ/delta_norm, generator state); "
@@ -1441,7 +1578,9 @@ def phase_distributed() -> dict:
                 losses.append(seg_l)
         return params, torch.cat(losses), gen_.get_state()
 
-    segs = [s.n_rounds for s in fig6_schedule().segments(SHARD_ROUNDS)]
+    seg_list = list(fig6_schedule().segments(SHARD_ROUNDS))
+    segs = [s.n_rounds for s in seg_list]
+    keys = len({(s.n_rounds, s.active is None) for s in seg_list})
     fused_ref = timed("single-device fused engine (fused scan step an epoch) hopper_fused",
                       lambda: walk("fused"), SHARD_ROUNDS, {"fused_aggregate_2d": 1})
     loop_ref = timed("single-device loop (round step, host τ) hopper_fused",
@@ -1455,25 +1594,44 @@ def phase_distributed() -> dict:
         print(f"distributed sharded: world size {dist.get_world_size()} over NCCL "
               f"(epochs {segs} under the Fig. 6 channel with churn); multi-rank exchange is "
               "not measured on one card")
-        for tag, shard, exchange, backend in (("gather", "clients", "gather", "hopper_fused"),
-                                              ("ring", "clients", "ring", "einsum"),
-                                              ("d", "d", "gather", "einsum")):
+        uncaptured = None
+        for tag, shard, exchange, backend, capture in (
+                ("gather", "clients", "gather", "hopper_fused", False),
+                ("gather", "clients", "gather", "hopper_fused", True),
+                ("ring", "clients", "ring", "einsum", True),
+                ("d", "d", "gather", "einsum", True)):
             mesh = make_client_mesh(axis="clients" if shard == "clients" else "model")
             step = build_sharded_scan_round_step(
                 loss_fn, mesh=mesh, shard=shard, exchange=exchange, relay_mode="fused",
                 relay_backend=backend, **kw)
-            eng = ShardedScanEngine(step, mesh=mesh, shard=shard, prefetch="inline")
+            eng = ShardedScanEngine(step, mesh=mesh, shard=shard, prefetch="inline",
+                                    capture=capture)
             want = {"fused_aggregate_2d": 1} if backend == "hopper_fused" else {}
-            got = timed(f"ShardedScanEngine {tag} {shard}/{backend} (world size "
-                        f"{mesh.size})", lambda eng=eng: walk(eng), SHARD_ROUNDS, want)
+            how = "captured" if capture else "eager"
+            got = timed(f"ShardedScanEngine {tag} {shard}/{backend} {how} (world size "
+                        f"{mesh.size}; trace_count counted below)", lambda eng=eng: walk(eng),
+                        SHARD_ROUNDS, want)
+            print(f"distributed {tag} {how}: trace_count {eng.trace_count}, replays "
+                  f"{eng.replays}, eager epochs {eng.eager_chunks}")
             if eng.dispatches != len(segs):
                 fail(f"distributed {tag}: {eng.dispatches} calls for {len(segs)} epochs")
+            if eng.trace_count != (keys if capture else 0):
+                fail(f"distributed {tag} {how}: trace_count {eng.trace_count}, expected "
+                     f"{keys if capture else 0} (distinct epoch lengths and masks)")
+            if not capture:
+                uncaptured = got
+                continue
+            if tag == "gather" and not (_bitwise_equal(got[0], uncaptured[0])
+                                        and torch.equal(got[1], uncaptured[1])
+                                        and torch.equal(got[2], uncaptured[2])):
+                fail("distributed gather: captured run not bitwise equal to the eager one")
             if not torch.equal(got[2], fused_ref[2]):
                 fail(f"distributed {tag}: generator state differs from the fused engine's")
             if tag == "gather":
                 if not (_bitwise_equal(got[0], fused_ref[0]) and torch.equal(got[1], fused_ref[1])):
                     fail("distributed gather: not bitwise equal to the fused engine")
-                print("distributed gather: bitwise equal to the single-device fused engine")
+                print("distributed gather: captured bitwise equal to eager and to the "
+                      "single-device fused engine")
                 continue
             dp = max((x - y).abs().max().item() for x, y in zip(_leaves(got[0]),
                                                                 _leaves(fused_ref[0])))
@@ -1634,15 +1792,16 @@ def _lm_serve() -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    summed_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_ms, _ = device_busy_ms(prof)
     print(f"lm serve eager decode (no graph): {eager_ms:.3f} ms a token over "
           f"{LM_EAGER_STEPS} steps, against {decode_ms:.3f} ms replaying the graph")
     if busy_ms == 0.0:
         print("lm serve profile: the profiler recorded no device time (not measured)")
     else:
         print(f"lm serve profile, one eager decode step: wall {wall_ms:.3f} ms (profiled), "
-              f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-              f"{sum(e.count for e in kernels)} kernel launches")
+              f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%; kernel times "
+              f"summed {summed_ms:.3f} ms), {sum(e.count for e in kernels)} kernel launches")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
     del params, out, cache, step_cache, forced, table, leaves

@@ -7,16 +7,19 @@ steady-state throughput.  Reported quantities:
 
   wall_s          warm-run wall clock for all ``spec.rounds`` rounds
   compile_s       cold wall minus warm wall.  The name is the JAX schema's;
-                  the port compiles nothing, so here it is the one-time
-                  cost of the first pass: loading the CUDA kernels (building
-                  them with nvcc when no build of these sources exists),
-                  cuDNN's and cuBLAS's first calls at these shapes,
-                  ``torch.func``'s first trace of the loss, and the caching
-                  allocator's first allocations
+                  here it is the one-time cost of the first pass: loading
+                  the CUDA kernels (building them with nvcc when no build of
+                  these sources exists), cuDNN's and cuBLAS's first calls
+                  at these shapes, ``torch.func``'s first trace of the
+                  loss, the caching allocator's first allocations and, on
+                  the card, the engines' CUDA graph captures
   rounds_per_sec  spec.rounds / wall_s — the headline engine throughput
-  trace_count     ``None``: the port runs eagerly and has no compiled
-                  program to count (a chunk captured as a CUDA graph is
-                  ROADMAP step 9a)
+  trace_count     the engine's CUDA graph captures over both passes (the
+                  counterpart of the JAX engines' compiles: one a full chunk
+                  length and churn-mask presence, at most 2; 0 on the CPU
+                  and on the ``segment`` backend, where chunks run eagerly);
+                  ``None`` for the loop, the async engine and the mesh
+                  steps, which capture nothing
   dispatches      the JAX formula — one per round for the loop, one per
                   chunk (⌈len/chunk⌉ per epoch) for the scan engines.  The
                   port runs a remainder chunk at its real length, so no
@@ -445,7 +448,7 @@ def _distributed_engine(bundle: ScenarioBundle, name: str, batches: list, trace_
         wall_s=warm_s,
         compile_s=max(0.0, cold_s - warm_s),
         rounds_per_sec=spec.rounds / warm_s,
-        trace_count=None,
+        trace_count=getattr(ex, "trace_count", None),
         # mesh: one call a round (loop) or a segment; shard: the engine's
         dispatches=spec.rounds if (spec.step == "mesh" and name == "loop") else count,
         final_loss=losses[-1],
@@ -524,7 +527,7 @@ def run_engine(bundle: ScenarioBundle, name: str, batches: list, trace_dir=None)
         wall_s=warm_s,
         compile_s=max(0.0, cold_s - warm_s),
         rounds_per_sec=spec.rounds / warm_s,
-        trace_count=None,
+        trace_count=getattr(engine, "trace_count", None),
         dispatches=dispatches,
         final_loss=losses[-1],
         losses=losses,

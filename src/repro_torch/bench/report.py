@@ -11,7 +11,8 @@ report was taken on::
 
 ``power_limit_w`` is what ``nvidia-smi`` reports for the card (null on the
 CPU or without ``nvidia-smi``).  Engine entries carry the port's
-``trace_count`` (always null: nothing is compiled) and ``kernel_launches``.
+``trace_count`` (the engine's CUDA graph captures; null for the loop, the
+async engine and the mesh steps) and ``kernel_launches``.
 
 The gate (:func:`check_regression`) compares per-engine ``rounds_per_sec``
 against a baseline report and fails when throughput regresses by more than

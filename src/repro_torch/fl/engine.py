@@ -16,16 +16,29 @@ engines are bit-identical to the per-round loop by construction (and by
 test: ``tests/test_torch_engine.py``): same params, server state, per-round
 metrics, and generator state after the run.
 
-Chunks are Python loops
------------------------
+A full chunk is one CUDA graph
+------------------------------
 JAX fuses a chunk into one compiled ``lax.scan`` and pads a remainder chunk
 to the chunk length (a scan's length is static, and a new length would
-recompile).  PyTorch runs eagerly: a chunk is a Python loop over
-``round_math``, a remainder chunk runs at its real length, and no dead round
-is ever computed — so nothing is padded, nothing is trimmed, and the JAX
-engines' ``trace_count`` has no counterpart.  (A chunk captured as a CUDA
-graph, the counterpart of one compiled dispatch, is later work.)  The chunk
-stays the unit of staging, of tracing spans and of ``dispatches``.
+recompile).  The port's counterpart of that compiled chunk is the chunk
+captured once as a CUDA graph (:class:`_ChunkGraph`) and replayed: one
+launch from the host for the thousands of kernels a ResNet round makes.
+Only **full-length** chunks are captured, one graph per (chunk length,
+churn mask present or not) and engine, so ``trace_count`` (the number of
+captures) stays at most 2 across epochs of any length, as the reference's
+compile count does.  The rest run eagerly, as a Python loop over
+``round_math``, and are counted in ``eager_chunks``:
+
+* a remainder chunk, at its real length (padding it to the chunk length
+  would compute dead rounds: a capture costs about one eager chunk);
+* every chunk on the ``segment`` backend, whose ``EdgeRelay`` changes its
+  edge count from epoch to epoch;
+* every chunk on the CPU (and on gloo ranks), where there is no graph;
+* every chunk of an engine built with ``capture=False``.
+
+A capture that fails on the card raises; no chunk falls back to eager.
+The chunk stays the unit of staging, of tracing spans and of
+``dispatches``; ``replays`` counts the chunks run through a graph.
 
 The consumer loop never waits on the device
 -------------------------------------------
@@ -44,14 +57,17 @@ Pipelined path
 :class:`repro_torch.channels.scheduler.SegmentPrefetcher` (inline, or on a
 worker thread) and draws its τ inside the chunk, one ``(n,)`` Bernoulli per
 real round in round order from the simulator's generator — the same calls,
-so the same bits, as the loop's per-round ``sample_tau``.
+so the same bits, as the loop's per-round ``sample_tau``.  A captured chunk
+draws them inside its graph (:class:`_ChunkGraph` says how the generator
+keeps the loop's state).
 
 Sharded path
 ------------
 :class:`ShardedScanEngine` drives the multi-rank step of
 :func:`repro_torch.fl.distributed.build_sharded_scan_round_step` one whole
 channel epoch a call, every rank running the same host walk; each rank
-stages only its own clients' rows of every epoch.
+stages only its own clients' rows of every epoch.  On the card it captures
+each epoch length once, collectives included.
 """
 from __future__ import annotations
 
@@ -64,9 +80,10 @@ import torch
 from repro_torch.channels.scheduler import SegmentPrefetcher, _stack_host, _to_device
 from repro_torch.core import relay as relay_lib
 from repro_torch.fl.simulator import FLSimulator
+from repro_torch.kernels import relay_mix as _kernels
 from repro_torch.obs import NULL_TRACER
 from repro_torch.sharding import rules as sharding_rules
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import resolve_device, tree_flatten, tree_map
 
 
 def _stack_rounds(batches: list, device: torch.device) -> Any:
@@ -152,17 +169,132 @@ def _fence(device: torch.device) -> None:
         event.synchronize()
 
 
+class _ChunkGraph:
+    """One chunk captured as a CUDA graph: the counterpart of the JAX
+    engines' compiled chunk, as ``launch/serve.py``'s ``_DecodeGraph`` is of
+    the compiled decode step.
+
+    ``fn(generator, *inputs)`` is the chunk; ``inputs`` a tuple of pytrees
+    of tensors (``None`` allowed), the learning rate among them as a 0-d
+    device tensor (a Python float would be baked into the graph).  The
+    graph reads its inputs from static buffers cloned from the first call's:
+    a call copies the chunk's inputs in, replays, and returns clones of the
+    outputs (the next replay overwrites the graph's own).
+
+    Before the capture the chunk runs once on a side stream, on clones,
+    which warms up cuBLAS, cuDNN, ``torch.func`` and the kernels' library.
+    A chunk that draws from a generator (τ in the pipelined and sharded
+    engines) draws in the graph from a private generator registered with
+    it (``CUDAGraph.register_generator_state``): the warm-up draws from it
+    too, so the caller's generator is left as it was, and a call hands it
+    the caller's state and hands the advanced state back.  A full chunk
+    always makes the same draws, so each replay advances the state as the
+    eager chunk does.  The relay kernels launched during the capture count
+    once a replay (:func:`repro_torch.kernels.relay_mix.count_launches`);
+    the warm-up and the capture count nothing.
+
+    Capture runs in ``thread_local`` error mode, so the threaded
+    prefetcher's pinned copies on another thread may go on meanwhile.  A
+    capture that fails raises."""
+
+    def __init__(self, fn, inputs: tuple, *, generator: torch.Generator | None = None):
+        saved = dict(_kernels.LAUNCHES)
+        self.static = tree_map(torch.clone, inputs)
+        self._gen = None
+        if generator is not None:
+            self._gen = torch.Generator(device=generator.device)
+            self._gen.set_state(generator.get_state())
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(self._gen, *tree_map(torch.clone, self.static))
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        if self._gen is not None:
+            self.graph.register_generator_state(self._gen)
+        before = dict(_kernels.LAUNCHES)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = fn(self._gen, *self.static)
+        self.launches = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+        _kernels.LAUNCHES.update(saved)
+
+    def __call__(self, generator, *inputs):
+        tree_map(lambda dst, src: dst.copy_(src), self.static, inputs)
+        if self._gen is not None:
+            self._gen.set_state(generator.get_state())
+        self.graph.replay()
+        if self._gen is not None:
+            generator.set_state(self._gen.get_state())
+        _kernels.count_launches(self.launches)
+        return tree_map(torch.clone, self.out)
+
+
+def _signature(inputs: tuple) -> tuple:
+    """The structure, shapes and dtypes of a chunk's inputs, the key of its
+    graph: the chunk length is the batches' leading dim, and a churn mask
+    present or not changes the structure."""
+    leaves, treedef = tree_flatten(inputs)
+    return treedef, tuple((tuple(x.shape), x.dtype) for x in leaves)
+
+
+class _Chunks:
+    """Runs one engine's chunks: a full chunk on the card through its
+    captured graph (captured at first use, one per input signature), any
+    other chunk eagerly.  Counts the captures (``trace_count``), the
+    replays and the eager chunks."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+        self.graphs: dict = {}
+        self.replays = 0
+        self.eager_chunks = 0
+
+    def reset(self) -> None:
+        """Zero the per-run counters; the captures stay cached."""
+        self.replays = self.eager_chunks = 0
+
+    def run(self, fn, generator, inputs: tuple, *, full: bool, lr):
+        """``fn(generator, *inputs)`` with ``lr`` appended to ``inputs``:
+        replayed if ``full`` and capture is on, else eager with ``lr`` as
+        the caller gave it."""
+        if not (self.enabled and full):
+            self.eager_chunks += 1
+            return fn(generator, *inputs, lr)
+        dev = tree_flatten(inputs)[0][0].device
+        lr = (lr.to(device=dev, dtype=torch.float32) if isinstance(lr, torch.Tensor)
+              else torch.full((), lr, dtype=torch.float32, device=dev))  # a fill, no copy
+        inputs = (*inputs, lr)
+        sig = _signature(inputs)
+        graph = self.graphs.get(sig)
+        if graph is None:
+            graph = self.graphs[sig] = _ChunkGraph(fn, inputs, generator=generator)
+        self.replays += 1
+        return graph(generator, *inputs)
+
+
+def _captures(capture: bool, device: torch.device, backend: str | None = None) -> bool:
+    """Whether an engine captures its full chunks: asked to, on a CUDA
+    device, with a dense relay operand (every backend but ``segment``)."""
+    return capture and device.type == "cuda" and backend != "segment"
+
+
 class EpochScanEngine:
     """Epoch-at-a-time execution for an :class:`FLSimulator`.
 
     The engine never re-implements round math: each round is
     ``sim.round_math``, and a segment runs as ``ceil(R / chunk)`` chunks,
-    the last one at its real length.
+    the last one at its real length.  On the card a full chunk is captured
+    once as a CUDA graph and replayed (the module docstring says which
+    chunks run eagerly): ``trace_count`` counts the captures, as the JAX
+    engine's counts its compiles; ``replays`` and ``eager_chunks`` count the
+    chunks of the latest ``run_schedule`` each way.
     """
 
-    def __init__(self, sim: FLSimulator, *, chunk: int = 32, tracer=None):
+    def __init__(self, sim: FLSimulator, *, chunk: int = 32, tracer=None,
+                 capture: bool = True):
         """``chunk`` is the number of rounds staged (batches stacked and
-        moved to the device) at a time.
+        moved to the device) at a time, and the length of a captured chunk.
+        ``capture=False`` runs every chunk eagerly.
 
         ``tracer`` (a :class:`repro_torch.obs.Tracer`) records per-chunk
         dispatch spans plus explicit blocked-on-device fences; the fences
@@ -175,6 +307,22 @@ class EpochScanEngine:
         self.sim = sim
         self.chunk = int(chunk)
         self.tracer = NULL_TRACER if tracer is None else tracer
+        self._chunks = _Chunks(_captures(capture, sim.device, sim.relay_backend))
+
+    @property
+    def trace_count(self) -> int:
+        return len(self._chunks.graphs)
+
+    @property
+    def replays(self) -> int:
+        return self._chunks.replays
+
+    @property
+    def eager_chunks(self) -> int:
+        return self._chunks.eager_chunks
+
+    def _chunk_fn(self, _generator, params, server_state, batches, taus, A, active, lr):
+        return _run_rounds(self.sim, params, server_state, batches, taus, lr, A, active)
 
     def sample_taus(self, generator: torch.Generator, p, n_rounds: int):
         """A segment's τ stream: ``n_rounds`` sequential ``sim.sample_tau``
@@ -213,22 +361,16 @@ class EpochScanEngine:
         per_round = []
         for start in range(0, R, C):
             stop = min(start + C, R)
-            chunk_batches = tree_map(lambda x: x[start:stop], batches)
+            inputs = (params, server_state, tree_map(lambda x: x[start:stop], batches),
+                      taus[start:stop], A, active)
+            with self.tracer.span("scan.chunk", cat="dispatch", rounds=stop - start):
+                params, server_state, ms = self._chunks.run(
+                    self._chunk_fn, None, inputs, full=stop - start == C, lr=lr)
             if self.tracer.enabled:
-                with self.tracer.span("scan.chunk", cat="dispatch", rounds=stop - start):
-                    params, server_state, ms = _run_rounds(
-                        self.sim, params, server_state, chunk_batches,
-                        taus[start:stop], lr, A, active,
-                    )
                 # explicit fence: bills the in-flight chunk to the device
                 # phase (untraced runs never block here)
                 with self.tracer.span("scan.device", cat="device", track="device"):
                     _fence(dev)
-            else:
-                params, server_state, ms = _run_rounds(
-                    self.sim, params, server_state, chunk_batches,
-                    taus[start:stop], lr, A, active,
-                )
             per_round.extend(ms)
         return params, server_state, _stack_metrics(per_round)
 
@@ -262,6 +404,7 @@ class EpochScanEngine:
         metrics stacked over all rounds.
         """
         dev = self.sim.device
+        self._chunks.reset()
         all_metrics = []
         for seg in schedule.segments(rounds):
             A = policy.relay_matrix(seg.state) if policy is not None else None
@@ -315,6 +458,10 @@ class PipelinedScanEngine:
       ``prefetch_stats.overlap_fraction``.  The consumer loop itself never
       waits on the device.
 
+    On the card a full chunk, its τ draws included, is captured once as a
+    CUDA graph and replayed, as in :class:`EpochScanEngine`:
+    ``trace_count``, ``replays`` and ``eager_chunks`` count the same way.
+
     The rounds are ``sim.round_math`` and the generator calls, batch order
     and policy call order are the serial loop's exactly, so the
     trajectory is bit-identical to the loop's.
@@ -328,6 +475,7 @@ class PipelinedScanEngine:
         prefetch: str = "inline",
         prefetch_depth: int = 2,
         tracer=None,
+        capture: bool = True,
     ):
         """``prefetch`` picks the staging mode (see
         :class:`~repro_torch.channels.scheduler.SegmentPrefetcher`):
@@ -340,7 +488,8 @@ class PipelinedScanEngine:
         spans on the consumer side.  The fences serialize the pipeline
         (observer effect): traced runs show *where* time goes, untraced
         runs measure how fast it is.  Also settable after construction via
-        the ``tracer`` attribute."""
+        the ``tracer`` attribute.  ``capture=False`` runs every chunk
+        eagerly."""
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         if prefetch not in ("inline", "thread"):
@@ -354,12 +503,31 @@ class PipelinedScanEngine:
         # chunks run — exactly one per staged chunk
         self.dispatches = 0
         self.prefetch_stats = None  # PrefetchStats of the latest run
+        self._chunks = _Chunks(_captures(capture, sim.device, sim.relay_backend))
 
-    def _chunk(self, generator, params, server_state, batches, n_rounds, A, p, lr, active):
+    @property
+    def trace_count(self) -> int:
+        return len(self._chunks.graphs)
+
+    @property
+    def replays(self) -> int:
+        return self._chunks.replays
+
+    @property
+    def eager_chunks(self) -> int:
+        return self._chunks.eager_chunks
+
+    def _chunk_fn(self, generator, params, server_state, batches, p, A, active, lr):
         # all the chunk's τ first, in round order: the generator serves
         # nothing else, so this is the loop's draw sequence exactly
+        n_rounds = tree_flatten(batches)[0][0].shape[0]
         taus = [self.sim.sample_tau(generator, p) for _ in range(n_rounds)]
         return _run_rounds(self.sim, params, server_state, batches, taus, lr, A, active)
+
+    def _chunk(self, generator, params, server_state, batches, n_rounds, A, p, lr, active):
+        return self._chunks.run(
+            self._chunk_fn, generator, (params, server_state, batches, p, A, active),
+            full=n_rounds == self.chunk, lr=lr)
 
     def run_schedule(
         self,
@@ -384,6 +552,7 @@ class PipelinedScanEngine:
         """
         dev = self.sim.device
         self.dispatches = 0
+        self._chunks.reset()
         prefetcher = SegmentPrefetcher(
             schedule,
             rounds,
@@ -407,6 +576,8 @@ class PipelinedScanEngine:
                     seg_id = seg.epoch_id
                     A_seg, active_seg = _segment_operands(self.sim, item.A, seg.active)
                     p_seg = _segment_value(seg.p, dev)
+                    if p_seg is None:
+                        p_seg = self.sim.p
                 if self.tracer.enabled:
                     with self.tracer.span(
                         "pipelined.chunk",
@@ -479,9 +650,14 @@ class ShardedScanEngine:
 
     The trajectory matches the one-rank fused step to the exchange's
     guarantee: bitwise for ``exchange="gather"``, f32-accumulation tolerance
-    for ``exchange="ring"`` (see `repro_torch.fl.ring`).  The JAX package's
-    ``trace_count`` has no counterpart: nothing is compiled (a chunk
-    captured as a CUDA graph is later work).
+    for ``exchange="ring"`` (see `repro_torch.fl.ring`).
+
+    On the card each call, the epoch's collectives included, is captured
+    once as a CUDA graph per (epoch length, churn mask present or not) and
+    replayed, as the JAX engine compiles one epoch per length:
+    ``trace_count`` counts the captures.  The communicator is warmed up by
+    the capture's warm-up run.  Gloo ranks on the CPU run every epoch
+    eagerly (``trace_count`` 0).
     """
 
     def __init__(
@@ -494,13 +670,15 @@ class ShardedScanEngine:
         prefetch_depth: int = 2,
         tracer=None,
         device=None,
+        capture: bool = True,
     ):
         """``step_fn`` is the ``scan_rounds(generator, params, server_state,
         batches, p, lr, A=..., active=...)`` callable from
         ``build_sharded_scan_round_step`` (built on the same ``mesh`` and
         ``shard`` mode).  ``tracer`` adds per-epoch dispatch + device-fence
         spans and the prefetcher's stage/h2d spans.  ``device`` is this
-        rank's device: the GPU unless the caller passes ``device="cpu"``."""
+        rank's device: the GPU unless the caller passes ``device="cpu"``.
+        ``capture=False`` runs every epoch eagerly."""
         if prefetch not in ("serial", "inline", "thread"):
             raise ValueError(f"unknown prefetch mode: {prefetch!r}")
         if shard not in ("clients", "d"):
@@ -514,6 +692,24 @@ class ShardedScanEngine:
         self._step_fn = step_fn
         self.dispatches = 0
         self.prefetch_stats = None
+        self._chunks = _Chunks(_captures(capture, self.device))
+
+    @property
+    def trace_count(self) -> int:
+        return len(self._chunks.graphs)
+
+    @property
+    def replays(self) -> int:
+        return self._chunks.replays
+
+    @property
+    def eager_chunks(self) -> int:
+        return self._chunks.eager_chunks
+
+    def _epoch_fn(self, generator, params, server_state, batches, p, A, active, lr):
+        _, params, server_state, losses = self._step_fn(
+            generator, params, server_state, batches, p, lr, A=A, active=active)
+        return params, server_state, losses
 
     def _place(self, host, *, stream=None):
         """Staging-side placement: host-stacked epoch → this rank's block on
@@ -529,10 +725,11 @@ class ShardedScanEngine:
         A, p, active = (_segment_value(x, dev) for x in (A, seg.p, seg.active))
         with self.tracer.span("shard.epoch", cat="dispatch", epoch=seg.epoch_id,
                               rounds=seg.n_rounds):
-            out = self._step_fn(generator, params, server_state, batches, p, lr,
-                                A=A, active=active)
+            out = self._chunks.run(
+                self._epoch_fn, generator, (params, server_state, batches, p, A, active),
+                full=True, lr=lr)
         self.dispatches += 1
-        return out
+        return (generator, *out)
 
     def run_schedule(
         self,
@@ -558,6 +755,7 @@ class ShardedScanEngine:
         dev = self.device
         self.dispatches = 0
         self.prefetch_stats = None
+        self._chunks.reset()
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         place = functools.partial(self._place, stream=stream)
         losses: list = []

@@ -22,6 +22,8 @@ Each wrapper checks its operands and then, by the device of Δ:
 * CUDA: launches its kernel on the current stream (the library is built at
   first use, see :mod:`repro_torch.kernels.build`) and counts the launch in
   :data:`LAUNCHES`.  A failed build or launch raises; there is no fallback.
+  Under a CUDA graph capture the launch is recorded, and the graph's
+  replays count it (:func:`count_launches`).
 * CPU: runs the plain version in :mod:`repro_torch.kernels.ref` with the
   kernel's own dtype rules (weights rounded to Δ's dtype, f32 sums, result
   in Δ's dtype).
@@ -49,6 +51,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launches(counts: dict) -> None:
+    """Add ``counts`` to :data:`LAUNCHES`: a CUDA graph's replay launches
+    the kernels its capture recorded without running their wrappers, so the
+    code that replays it counts them here, once a replay."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _check(name: str, weights: torch.Tensor, delta: torch.Tensor, *, square: bool):

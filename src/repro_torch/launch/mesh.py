@@ -17,6 +17,9 @@ Three shapes:
   model zoo, optionally ``(2 pod, 16 data, 16 model)``.
 * :func:`make_local_mesh` — a small ``(data, model)`` mesh (tests).
 
+A :class:`MeshShape` is a mesh's axes and shape without ranks, for planning
+a layout in one process (``make_production_mesh(shape_only=True)``).
+
 Every mesh is built over the default process group, which the caller
 initialises (``torch.distributed.init_process_group``) with the backend of
 its choice — NCCL on GPUs, gloo on the CPU — before the mesh is made; every
@@ -52,35 +55,19 @@ def _world() -> tuple[int, int]:
     return 1, 0
 
 
-class Mesh:
-    """Ranks ``0 … size−1`` of the world as a row-major array of ``shape``
-    over ``axis_names``.
+class MeshShape:
+    """A mesh's named axes and shape, and one rank's place in it, without
+    processes: what `sharding/rules.py` reads to resolve and cut layouts.
+    The dry run (`launch/dryrun.py`) plans a 256- or 512-rank layout with
+    one in one process; ``rank`` picks whose block ``local_shard`` cuts.
+    ``group`` is None: it has no collectives."""
 
-    ``group`` is the process group over those ranks (None for a one-rank
-    mesh in a process without a group).  A rank of the world outside the mesh
-    has ``rank`` None and takes no part in its collectives.
-    """
-
-    def __init__(self, axis_names: tuple, shape: tuple):
+    def __init__(self, axis_names: tuple, shape: tuple, *, rank: int = 0):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.size = math.prod(self.shape.values())
-        world, rank = _world()
-        if world < self.size:
-            raise RuntimeError(
-                f"need {self.size} devices for mesh {tuple(self.shape.values())}, "
-                f"have {world} — start {self.size} ranks and call "
-                "torch.distributed.init_process_group in each before making the "
-                "mesh"
-            )
-        self.rank = rank if rank < self.size else None
-        if not (dist.is_available() and dist.is_initialized()):
-            self.group = None  # one rank, no group: collectives are the identity
-        elif self.size == world:
-            self.group = dist.group.WORLD
-        else:
-            # a collective call: every rank of the world makes it
-            self.group = dist.new_group(ranks=list(range(self.size)))
+        self.rank = rank
+        self.group = None
 
     def coords(self, rank: int | None = None) -> dict:
         """The mesh coordinates of ``rank`` (default: this process)."""
@@ -98,6 +85,35 @@ class Mesh:
         for a in _as_axes(axes):
             idx = idx * self.shape[a] + c[a]
         return idx
+
+
+class Mesh(MeshShape):
+    """Ranks ``0 … size−1`` of the world as a row-major array of ``shape``
+    over ``axis_names``.
+
+    ``group`` is the process group over those ranks (None for a one-rank
+    mesh in a process without a group).  A rank of the world outside the mesh
+    has ``rank`` None and takes no part in its collectives.
+    """
+
+    def __init__(self, axis_names: tuple, shape: tuple):
+        super().__init__(axis_names, shape)
+        world, rank = _world()
+        if world < self.size:
+            raise RuntimeError(
+                f"need {self.size} devices for mesh {tuple(self.shape.values())}, "
+                f"have {world} — start {self.size} ranks and call "
+                "torch.distributed.init_process_group in each before making the "
+                "mesh"
+            )
+        self.rank = rank if rank < self.size else None
+        if not (dist.is_available() and dist.is_initialized()):
+            self.group = None  # one rank, no group: collectives are the identity
+        elif self.size == world:
+            self.group = dist.group.WORLD
+        else:
+            # a collective call: every rank of the world makes it
+            self.group = dist.new_group(ranks=list(range(self.size)))
 
     def _group(self, axes):
         """The mesh's group, for collectives along ``axes``: the axes must
@@ -162,12 +178,14 @@ def make_client_mesh(n_devices: int | None = None, *, axis: str = "clients") -> 
     return Mesh((axis,), (n,))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, shape_only: bool = False) -> Mesh:
     """Single pod: 256 ranks as (16 data, 16 model).  Multi-pod: 2 × 256 as
-    (2 pod, 16 data, 16 model); the client axes are ("pod", "data")."""
+    (2 pod, 16 data, 16 model); the client axes are ("pod", "data").
+    ``shape_only`` gives the layout as a :class:`MeshShape`, without ranks
+    (the dry run's)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(axes, shape)
+    return MeshShape(axes, shape) if shape_only else Mesh(axes, shape)
 
 
 def make_local_mesh(data: int = 2, model: int = 2, *, pod: int = 0) -> Mesh:

@@ -4,8 +4,9 @@ cross-attention variants, plus KV-cache prefill/decode paths.
 Written as the JAX package writes it, scores in f32 masked with -1e30 and
 the blockwise online softmax above ``BLOCKWISE_THRESHOLD``, rather than
 through ``scaled_dot_product_attention``, so that the two packages agree on
-the CPU.  The reference's sharding hints have no counterpart here (one
-device).
+the CPU.  The blockwise path carries the reference's sharding hints
+(`repro_torch.sharding.hints`) at the same tensors: inert without an active
+mapping, and never a change of value.
 
 Sliding-window training/prefill uses the chunked two-block scheme (each
 window-sized chunk attends to itself causally and to the previous chunk with
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
+from repro_torch.sharding.hints import hint
 
 NEG_INF = -1e30
 
@@ -103,18 +105,24 @@ def blockwise_gqa(q, k, v, *, pos_q, pos_k, causal: bool, window: int,
     nq, nk = Sq // qc, Sk // kc
     scale = hd**-0.5
 
-    qr = q.reshape(B, nq, qc, Kv, G, hd)
-    kr = k.reshape(B, nk, kc, Kv, hd)
-    vr = v.reshape(B, nk, kc, Kv, hd)
-    pq = pos_q.reshape(B, nq, qc)
+    # the reference's stable layout for the nested loops (see
+    # sharding/hints.py): batch → client axes, the q-chunk dim → "model",
+    # K/V blocks replicated over "model"
+    qr = hint(q.reshape(B, nq, qc, Kv, G, hd), "batch", None, "qchunk", None, None, None)
+    kr = hint(k.reshape(B, nk, kc, Kv, hd), "batch", None, None, None, None)
+    vr = hint(v.reshape(B, nk, kc, Kv, hd), "batch", None, None, None, None)
+    pq = hint(pos_q.reshape(B, nq, qc), "batch", None, "qchunk")
     pk = pos_k.reshape(B, nk, kc)
 
     chunks = []
     for i in range(nq):
         q_blk, pq_blk = qr[:, i], pq[:, i]  # (B,qc,Kv,G,hd), (B,qc)
-        m = torch.full((B, Kv, G, qc), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros((B, Kv, G, qc), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, Kv, G, qc, hd), dtype=torch.float32, device=q.device)
+        m = hint(torch.full((B, Kv, G, qc), NEG_INF, dtype=torch.float32, device=q.device),
+                 "batch", None, None, "qchunk")
+        l = hint(torch.zeros((B, Kv, G, qc), dtype=torch.float32, device=q.device),
+                 "batch", None, None, "qchunk")
+        acc = hint(torch.zeros((B, Kv, G, qc, hd), dtype=torch.float32, device=q.device),
+                   "batch", None, None, "qchunk", None)
         for j in range(nk):
             k_blk, v_blk, pk_blk = kr[:, j], vr[:, j], pk[:, j]
             s = torch.einsum("bqkgh,bskh->bkgqs", q_blk, k_blk).float() * scale

@@ -12,7 +12,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_flatten, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +57,19 @@ class ClientOpt:
                          state["m"], grads, params)
             v = tree_map(lambda v, g, p: self.b2 * v + (1 - self.b2) * decayed(g, p) ** 2,
                          state["v"], grads, params)
-            # bias corrections in f32, as the JAX package computes them
-            bc1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** t
-            bc2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** t
+            # bias corrections in f32 on the device, b ** f32(t) as the JAX
+            # package computes them: no host tensor, so no copy in a round
+            # (a captured round may not copy from the host)
+            dev = tree_flatten(m)[0][0].device
+
+            def bias_correction(b):
+                return 1 - torch.pow(torch.full((), b, dtype=torch.float32, device=dev),
+                                     float(t))
+
+            bc1, bc2 = bias_correction(self.b1), bias_correction(self.b2)
             new = tree_map(
                 lambda p, m_, v_: (
-                    p.float() - lr * (m_ / bc1.to(m_.device))
-                    / (torch.sqrt(v_ / bc2.to(v_.device)) + self.eps)
+                    p.float() - lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + self.eps)
                 ).to(p.dtype),
                 params, m, v)
             return new, {"m": m, "v": v, "t": t}

@@ -6,6 +6,7 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import functools
 import math
 
 import pytest
@@ -116,7 +117,14 @@ def test_kernels_at_the_mesh_scenario_shape(dev, dtype, layout):
 
 
 def test_relay_mix_backward_on_card(dev):
-    A, _, d = _inputs(6, 3001, torch.float32, dev)
+    """dΔ = Aᵀ·g through the kernel against the plain chain's; dA = g·Δᵀ, an
+    f32 product of length D, within the standard forward-error bound of
+    such a product around the f64 product, γ_D·(|g|·|Δ|ᵀ) with γ_D =
+    D·u/(1 − D·u), u = 2⁻²⁴ (any correct f32 summation order meets it,
+    the plain chain's included), and equal to ``g @ Δᵀ`` in f32 bit for
+    bit (the same call)."""
+    n, D = 6, 3001
+    A, _, d = _inputs(n, D, torch.float32, dev)
     cot = torch.randn_like(d)
     grads = []
     for fn in (k.relay_mix_2d, ref.relay_mix_2d):
@@ -124,8 +132,14 @@ def test_relay_mix_backward_on_card(dev):
         d_ = d.clone().requires_grad_(True)
         (fn(A_, d_) * cot).sum().backward()
         grads.append((A_.grad, d_.grad))
-    torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-5, rtol=1e-5)
+    u = 2.0**-24
+    gamma = D * u / (1 - D * u)
+    exact = cot.double() @ d.double().t()
+    bound = gamma * (cot.double().abs() @ d.double().abs().t())
+    for dA, _ in grads:
+        assert bool(((dA.double() - exact).abs() <= bound).all())
+    assert torch.equal(grads[0][0], cot @ d.t())
 
 
 def test_kernels_are_bitwise_deterministic(dev):
@@ -244,6 +258,119 @@ def test_engines_bitwise_equal_to_loop_on_card(dev, strategy, backend, engine):
     for name in ("loss", "tau", "delta_norm"):
         assert torch.equal(em[name], lm[name])
     assert torch.equal(eg.get_state(), lg.get_state())
+
+
+@pytest.mark.parametrize("engine", ["scan", "pipelined_inline", "pipelined_thread"])
+@pytest.mark.parametrize("strategy,backend", [("colrel", "hopper"),
+                                              ("colrel_fused", "hopper_fused")])
+def test_captured_engines_bitwise_equal_to_loop_on_card(dev, strategy, backend, engine):
+    """Each engine with its full chunks replayed as CUDA graphs against the
+    same engine eager and the loop: bitwise equal params, server state,
+    metrics and generator state; at most 2 captures; every chunk replayed
+    or eager (the remainders); the kernel counted once a round, replays
+    included."""
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.core.aggregation import ServerOpt
+    from repro_torch.fl.engine import EpochScanEngine, PipelinedScanEngine, run_rounds_loop
+    from repro_torch.fl.simulator import FLSimulator
+
+    n, rounds, dim, chunk = 6, 17, 4097, 2
+    schedule = functools.partial(_churn_schedule, n)
+    lengths = [s.n_rounds for s in schedule().segments(rounds)]
+    chunks, full = sum(-(-x // chunk) for x in lengths), sum(x // chunk for x in lengths)
+    assert 0 < full < chunks
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    def run(name, capture=True):
+        rng = np.random.default_rng(42)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy=strategy, local_steps=2,
+                          relay_backend=backend, server_opt=ServerOpt(momentum=0.5))
+        params = {"x": torch.ones(dim, device=dev)}
+        kw = dict(schedule=schedule(), rounds=rounds, lr=0.1,
+                  policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+                  next_batch=lambda: {"c": rng.standard_normal((n, 2, 4, dim))
+                                      .astype(np.float32)})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        k.reset_launches()
+        eng = None
+        if name == "loop":
+            out = run_rounds_loop(sim, gen, params, sim.init_server_state(params), **kw)
+        elif name == "scan":
+            eng = EpochScanEngine(sim, chunk=chunk, capture=capture)
+        else:
+            eng = PipelinedScanEngine(sim, chunk=chunk, prefetch=name.split("_")[1],
+                                      capture=capture)
+        if eng is not None:
+            out = eng.run_schedule(gen, params, sim.init_server_state(params), **kw)
+        torch.cuda.synchronize()
+        return out, dict(k.LAUNCHES), eng
+
+    (lp, ls, lm, lg), _, _ = run("loop")
+    kernel = "relay_mix_2d" if backend == "hopper" else "fused_aggregate_2d"
+    for capture in (True, False):
+        (ep, es, em, eg), launches, eng = run(engine, capture)
+        assert launches == {name: rounds if name == kernel else 0 for name in launches}
+        assert torch.equal(ep["x"], lp["x"]) and torch.equal(es["x"], ls["x"])
+        for name in ("loss", "tau", "delta_norm"):
+            assert torch.equal(em[name], lm[name])
+        assert torch.equal(eg.get_state(), lg.get_state())
+        if capture:
+            assert 1 <= eng.trace_count <= 2 and (eng.replays, eng.eager_chunks) == (
+                full, chunks - full)
+        else:
+            assert (eng.trace_count, eng.replays, eng.eager_chunks) == (0, 0, chunks)
+
+
+def test_captured_sharded_engine_bitwise_on_a_one_rank_nccl_world(dev, tmp_path):
+    """ShardedScanEngine captured against uncaptured over an NCCL world of
+    one rank: bitwise params, losses and generator state, one capture per
+    (epoch length, masked) pair."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import channels
+    from repro_torch.fl.distributed import build_sharded_scan_round_step
+    from repro_torch.fl.engine import ShardedScanEngine
+    from repro_torch.launch.mesh import make_client_mesh
+
+    n, rounds, dim = 6, 17, 4097
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    segs = list(_churn_schedule(n).segments(rounds))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_client_mesh()
+        step = build_sharded_scan_round_step(loss_fn, n_clients=n, local_steps=2, mesh=mesh,
+                                             relay_backend="hopper_fused")
+        outs = []
+        for capture in (True, False):
+            rng = np.random.default_rng(42)
+            eng = ShardedScanEngine(step, mesh=mesh, capture=capture)
+            params = {"x": torch.ones(dim, device=dev)}
+            out = eng.run_schedule(
+                torch.Generator(device=dev).manual_seed(7), params, None,
+                schedule=_churn_schedule(n), rounds=rounds, lr=0.1,
+                policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+                next_batch=lambda rng=rng: {"c": rng.standard_normal((n, 2, 4, dim))
+                                            .astype(np.float32)})
+            torch.cuda.synchronize()
+            outs.append((out, eng.trace_count, eng.replays))
+    finally:
+        dist.destroy_process_group()
+    ((cp, _, cm, cg), count, replays), ((up, _, um, ug), zero, _) = outs
+    assert count == len({(s.n_rounds, s.active is None) for s in segs}) and zero == 0
+    assert replays == len(segs)
+    assert torch.equal(cp["x"], up["x"]) and torch.equal(cm["loss"], um["loss"])
+    assert torch.equal(cg.get_state(), ug.get_state())
 
 
 # -- the bench harness on the card -------------------------------------------

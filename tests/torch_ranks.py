@@ -162,3 +162,45 @@ def engine_cases(rank, modes):
             _host(params), metrics["loss"].numpy(), gen.get_state().numpy(),
             eng.dispatches, placed[0])
     return out
+
+
+def hint_redistributes(rank):
+    """A replicated DTensor hinted under a (data, model) mapping on a 2 × 2
+    mesh: its placements, this rank's block and the whole tensor."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.sharding import hints
+
+    dmesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    mesh = make_local_mesh(2, 2)
+    x = distribute_tensor(torch.arange(32.0).reshape(4, 8), dmesh, [Replicate(), Replicate()])
+    with hints.axis_rules(mesh, {"batch": "data", "qchunk": "model"}):
+        y = hints.hint(x * 2, "batch", "qchunk")
+        z = hints.hint(y, "batch", None)  # a hint that moves it again
+    def names(t):
+        return [(type(p).__name__, getattr(p, "dim", None)) for p in t.placements]
+
+    return names(y), y.to_local().numpy(), y.full_tensor().numpy(), names(z)
+
+
+def collectives_counted(rank):
+    """hlo_cost.analyze over an all_reduce, an all_gather, a reduce-scatter
+    and a send/recv pair on this gloo world, with real CPU tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import hlo_cost
+
+    def step(x):
+        dist.all_reduce(x.clone())
+        dist.all_gather([torch.empty_like(x) for _ in range(dist.get_world_size())], x)
+        out = torch.empty(x.shape[0] // dist.get_world_size(), *x.shape[1:])
+        dist.reduce_scatter_tensor(out, x)
+        other = 1 - dist.get_rank()
+        recv = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, other), dist.P2POp(dist.irecv, recv, other)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv
+
+    return hlo_cost.analyze(step, torch.ones(4, 6))
