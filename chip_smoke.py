@@ -15,9 +15,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
             calls are bitwise equal and relay_mix_2d's backward, then times
             each kernel, its plain version and one PyTorch call for the same
             function, beside the card's bound for the work, at the main
-            shape, at (8, 10⁷) and at mesh_corr_500's (10, 2,410); prints
-            the fused kernel's launch plan (vector bytes, grid, resident
-            blocks an SM) at each.
+            shape, at (8, 10⁷) and at mesh_corr_500's (10, 2,410), and the
+            mix also at n = 32, 64 and 128 on the main width (bitwise equal
+            to its plain version there); prints each kernel's launch plan
+            (the mix's path, vector bytes, grid, resident blocks an SM,
+            threads a block) at each.
 4. main     ColRel rounds of ResNet-20/GN at full width (D = 272,282) for
             n = 10 clients through ``FLSimulator``, four times on the same
             τ and batches: colrel on ``hopper`` and on ``einsum``,
@@ -192,13 +194,17 @@ SPARSE_SHAPES = ((1_000, 698), (1_025, 698), (10_000, 698))
 # the fused kernel in mesh_corr_500's kernel check: n = 10 clients of its
 # MLP (dim 64, width 32: D = 64·32 + 32 + 32·10 + 10)
 MESH_SHAPE = (10, 2_410)
+# the mix timed at the main width for more clients: n = 32 (its stream
+# path's largest n) and its slab path at 64 and 128 (the JAX kernel's regime)
+MIX_WIDE_SHAPES = tuple((n, RESNET20_D) for n in (32, 64, 128))
 
 # kernel sweep and tolerances: f32 atol 1e-5 + rtol 1e-5 (sum order differs);
 # bf16 one bf16 ulp of the output (rtol 2^-7) + the same f32 atol.  Besides
 # the main path's shape: D below one vector (1, 3) and odd (4,097, D + 1);
 # n across the fused kernel's origin chunks (6, 12 and 24 origins for 16-,
-# 8- and 4- or 2-byte loads; 16 for a chunk of 16)
-SWEEP_N = (1, 7, 10, 12, 13, 15, 16, 17, 24, 25, 64, 128, 300)
+# 8- and 4- or 2-byte loads; 16 for a chunk of 16) and across the mix's
+# paths (32 the stream path's last, 33 the slab path's first)
+SWEEP_N = (1, 7, 10, 12, 13, 15, 16, 17, 24, 25, 32, 33, 64, 128, 300)
 SWEEP_D = (1, 3, 100, MESH_SHAPE[1], 4097, 5000, RESNET20_D, RESNET20_D + 1)
 ATOL, RTOL_F32, RTOL_BF16 = 1e-5, 1e-5, 2.0**-7
 PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
@@ -470,9 +476,9 @@ def phase_kernels() -> dict:
             }
             if label == "main":
                 t["ms_l2_resident"] = device_ms(kern, args[:1], reps)
+            plan = k.relay_mix_plan if name == "relay_mix_2d" else k.fused_aggregate_plan
+            t["plan"] = {"f32": plan(ds[0]), "bf16": plan(ds[0].to(torch.bfloat16))}
             if name == "fused_aggregate_2d":
-                t["plan"] = {"f32": k.fused_aggregate_plan(ds[0]),
-                             "bf16": k.fused_aggregate_plan(ds[0].to(torch.bfloat16))}
                 # information, not a gate: cuBLAS sums in another order
                 t["bitwise_equal_c_at_delta"] = torch.equal(
                     k.fused_aggregate_2d(c, ds[0]), c @ ds[0])
@@ -480,6 +486,38 @@ def phase_kernels() -> dict:
             print(f"time {name} {label} (n={n}, D={D}, {copies} Δ copies): "
                   + json.dumps({key: v for key, v in t.items() if key != "shape"}))
         del ds, mix_args, fused_args
+        torch.cuda.empty_cache()
+
+    # the mix for more clients at the main width: n = 32 (the stream path's
+    # largest) and the slab path at 64 and 128; bitwise equal to the plain
+    # version and repeatable, then timed.  The plain version launches n
+    # addcmuls a call, so it takes fewer calls a graph
+    timing["relay_mix_2d"]["wide"] = []
+    for n, D in MIX_WIDE_SHAPES:
+        copies = max(1, math.ceil(2 * L2_BYTES / (4 * n * D)))
+        A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
+        ds = [torch.randn(n, D, generator=gen, device=dev) for _ in range(copies)]
+        m = k.relay_mix_2d(A, ds[0])
+        if not torch.equal(m, ref.relay_mix_2d(A, ds[0])):
+            fail(f"relay_mix_2d n={n} D={D}: not bitwise equal to the plain version")
+        if not torch.equal(k.relay_mix_2d(A, ds[0]), m):
+            fail(f"relay_mix_2d n={n} D={D}: two calls differ")
+        args = [(A, d) for d in ds]
+        reps = 200 if n * D < 10**7 else 40
+        b_ms, b_by = bound_ms(4 * (n * n + 2 * n * D), 2 * n * n * D)
+        t = {
+            "shape": [n, D],
+            "ms": device_ms(k.relay_mix_2d, args, reps),
+            "plain_ms": device_ms(ref.relay_mix_2d, args, max(1, 400 // n)),
+            "library_ms": device_ms(torch.matmul, args, reps),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "plan": k.relay_mix_plan(ds[0]),
+        }
+        timing["relay_mix_2d"]["wide"].append(t)
+        print(f"time relay_mix_2d wide (n={n}, D={D}, {copies} Δ copies; bitwise equal to the "
+              f"plain version): " + json.dumps({key: v for key, v in t.items() if key != "shape"}))
+        del ds, args, m
         torch.cuda.empty_cache()
 
     # the fused kernel at the segment backend's shapes: bitwise equal to the
@@ -1969,7 +2007,9 @@ def _lm_kernel_times(widths: dict) -> dict:
             args = [(coef, d) for d in ds]
             t = {"arch": arch, "shape": [n, D], "max_abs_err": err,
                  "ms": device_ms(kern, args, 100), "plain_ms": device_ms(plain, args, 100),
-                 "library_ms": device_ms(lib, args, 100), "bound_ms": b_ms, "bound_by": b_by}
+                 "library_ms": device_ms(lib, args, 100), "bound_ms": b_ms, "bound_by": b_by,
+                 "plan": (k.relay_mix_plan if name == "relay_mix_2d"
+                          else k.fused_aggregate_plan)(ds[0])}
             out[name].append(t)
             print(f"time {name} lm {arch} (n={n}, D={D}, {copies} Δ copies): "
                   + json.dumps({key: v for key, v in t.items() if key not in ("shape", "arch")}))
@@ -2061,14 +2101,15 @@ def main() -> int:
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
             "library_ms": main_t["library_ms"],
             "ms_l2_resident": main_t["ms_l2_resident"],
-            **({"plan": main_t["plan"]} if "plan" in main_t else {}),
+            "plan": main_t["plan"],
             "large": {key: large_t[key] for key in
-                      ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                      ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")},
             "mesh": {**{key: kern["timing"][name]["mesh"][key] for key in
-                        ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                        ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                         "plan")},
                      "max_abs_err": kern["mesh_err"][e]},
-            **({"sparse": kern["timing"][name]["sparse"]}
-               if "sparse" in kern["timing"][name] else {}),
+            **{key: kern["timing"][name][key] for key in ("sparse", "wide")
+               if key in kern["timing"][name]},
             "lm": lm["times"][name],
         })
     print(f"total {time.perf_counter() - t0:.1f} s after the device check")

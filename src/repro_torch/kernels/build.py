@@ -35,9 +35,11 @@ _LAUNCHER_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
 ]
-# and the fused kernel's launch plan (launches nothing):
-#   int fused_aggregate_2d_plan(const void* delta, void* out, int n,
-#                               long long D, int dtype, int* plan)
+# and each kernel's launch plan (launches nothing):
+#   int relay_mix_2d_plan(const void* delta, void* out, int n,
+#                         long long D, int dtype, int* plan)   // plan[5]
+#   int fused_aggregate_2d_plan(...)                           // plan[3]
+_PLANS = ("relay_mix_2d_plan", "fused_aggregate_2d_plan")
 _PLAN_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
     ctypes.POINTER(ctypes.c_int),
@@ -103,6 +105,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCHER_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.fused_aggregate_2d_plan.argtypes = _PLAN_ARGTYPES
-    lib.fused_aggregate_2d_plan.restype = ctypes.c_int
+    for name in _PLANS:
+        fn = getattr(lib, name)
+        fn.argtypes = _PLAN_ARGTYPES
+        fn.restype = ctypes.c_int
     return lib

@@ -3,19 +3,35 @@
 u = c·Δ (``fused_aggregate_2d``).
 
 Shape regime: A is tiny ((n, n), n ≈ 10 clients on the main path) and Δ is
-long ((n, D), D = the model's parameter count).  The mix is bound by
-device-memory bytes.  The fused reduction reads n·D elements once: at the
-main-path shape (10, 272,282) f32 what bounds it is first the launch and the
-ramp until enough loads are in flight, then the bytes; at (8, 10⁷) the
-bytes.  Its kernel is built for that: one wave of blocks (the card's SMs ×
-the kernel's resident blocks an SM, capped at the column tiles) striding
-over column tiles, c staged in shared memory once a block, V columns a
-thread read as one vector, and a chunk of origins' loads in flight before
-the first FMA.  The vector is the widest of 16, 8 or 4 bytes that divides
-Δ's base address, the output's and the row pitch D·sizeof(dtype) (else one
-element): f32 at the main shape takes 8-byte loads, bf16 4-byte ones.
-:func:`fused_aggregate_plan` reports the choice.  The design notes sit in
-``csrc/relay_mix.cu``.
+long ((n, D), D = the model's parameter count).  Both kernels read Δ in
+vectors: the widest of 16, 8 or 4 bytes that divides Δ's base address, the
+output's and the row pitch D·sizeof(dtype) (else one element); f32 at the
+main shape (10, 272,282) takes 8-byte loads, bf16 4-byte ones.
+
+``relay_mix_2d`` takes one of two paths by n (:func:`relay_mix_plan`
+reports which, with its vectors, grid and threads):
+
+* ``stream`` (n ≤ 32, every path the port drives).  Bound by device-memory
+  bytes (n·D elements in, n·D out).  One wave of 128-thread blocks (the
+  card's SMs × the kernel's resident blocks an SM, capped at the column
+  tiles) striding over column tiles, the row passes spread over more blocks
+  when the tiles are fewer than the SMs; each thread loads all n origins of
+  one vector before its first FMA; A rounded and staged in shared memory
+  once a block, behind the first tile's loads.
+* ``slab`` (n > 32).  At n ≥ 80 the f32 FMAs bound it (n/4 flop a byte
+  against the card's 20).  A block holds up to 128 rows × 128 columns of the
+  output in 8 × 4 (n ≤ 64) or 16 × 4 register tiles and walks the origins
+  in chunks of 32, each chunk's slab of Δ and of A copied into shared
+  memory by cp.async, double-buffered; for n ≤ 128 each element of Δ is
+  read from device memory once.
+
+No tensor cores: TF32 would change the bits.  The fused reduction reads
+n·D elements once: at the main shape what bounds it is first the launch and
+the ramp until enough loads are in flight, then the bytes; at (8, 10⁷) the
+bytes.  Its kernel is one wave of blocks striding over column tiles, c
+staged in shared memory once a block, and a chunk of origins' loads in
+flight before the first FMA (:func:`fused_aggregate_plan`).  The design
+notes sit in ``csrc/relay_mix.cu``.
 
 Each wrapper checks its operands and then, by the device of Δ:
 
@@ -25,8 +41,8 @@ Each wrapper checks its operands and then, by the device of Δ:
   Under a CUDA graph capture the launch is recorded, and the graph's
   replays count it (:func:`count_launches`).
 * CPU: runs the plain version in :mod:`repro_torch.kernels.ref` with the
-  kernel's own dtype rules (weights rounded to Δ's dtype, f32 sums, result
-  in Δ's dtype).
+  kernel's own dtype rules (weights rounded to Δ's dtype, f32 sums in
+  ascending origin order, result in Δ's dtype).
 
 ``relay_mix_2d`` is differentiable (a :class:`torch.autograd.Function`, the
 counterpart of the Pallas kernel's ``custom_vjp``): dΔ = Aᵀ·g runs the same
@@ -134,19 +150,35 @@ def fused_aggregate_2d(coeffs: torch.Tensor, delta: torch.Tensor) -> torch.Tenso
     return _launch("fused_aggregate_2d", coeffs, delta, out)
 
 
-def fused_aggregate_plan(delta: torch.Tensor) -> dict:
-    """The launch :func:`fused_aggregate_2d` makes for this CUDA Δ (into an
-    output from torch's allocator): ``vec_bytes`` (bytes a load),
-    ``grid`` (blocks) and ``blocks_per_sm`` (resident blocks an SM).
-    Launches nothing."""
+def _plan(name: str, delta: torch.Tensor, size: int, *, rows: bool) -> list[int]:
+    """The ``size`` ints that ``{name}_2d_plan`` fills for this Δ and an
+    output from torch's allocator ((n, D) with ``rows``, else (D,))."""
     if delta.device.type != "cuda" or delta.dim() != 2 or delta.dtype not in _DTYPE_CODES:
-        raise ValueError("fused_aggregate_plan: Δ must be a 2-D f32 or bf16 CUDA tensor")
+        raise ValueError(f"{name}_plan: Δ must be a 2-D f32 or bf16 CUDA tensor")
     n, D = delta.shape
-    out = torch.empty(D, dtype=delta.dtype, device=delta.device)
-    plan = (ctypes.c_int * 3)()
+    out = torch.empty(delta.shape if rows else D, dtype=delta.dtype, device=delta.device)
+    plan = (ctypes.c_int * size)()
     with torch.cuda.device(delta.device):
-        err = build.library().fused_aggregate_2d_plan(
+        err = getattr(build.library(), f"{name}_2d_plan")(
             delta.data_ptr(), out.data_ptr(), n, D, _DTYPE_CODES[delta.dtype], plan)
     if err != 0:
-        raise RuntimeError(f"fused_aggregate_plan: CUDA error {err}")
-    return {"vec_bytes": plan[0], "grid": plan[1], "blocks_per_sm": plan[2]}
+        raise RuntimeError(f"{name}_plan: CUDA error {err}")
+    return list(plan)
+
+
+def relay_mix_plan(delta: torch.Tensor) -> dict:
+    """The launch :func:`relay_mix_2d` makes for this CUDA Δ: ``path``
+    (``"stream"`` for n ≤ 32, ``"slab"`` beyond), ``vec_bytes`` (bytes a load
+    of Δ), ``grid`` (blocks), ``blocks_per_sm`` (resident blocks an SM) and
+    ``threads`` (a block).  Launches nothing."""
+    path, vec_bytes, grid, blocks_per_sm, threads = _plan("relay_mix", delta, 5, rows=True)
+    return {"path": {1: "stream", 2: "slab"}[path], "vec_bytes": vec_bytes, "grid": grid,
+            "blocks_per_sm": blocks_per_sm, "threads": threads}
+
+
+def fused_aggregate_plan(delta: torch.Tensor) -> dict:
+    """The launch :func:`fused_aggregate_2d` makes for this CUDA Δ:
+    ``vec_bytes`` (bytes a load), ``grid`` (blocks) and ``blocks_per_sm``
+    (resident blocks an SM).  Launches nothing."""
+    vec_bytes, grid, blocks_per_sm = _plan("fused_aggregate", delta, 3, rows=False)
+    return {"vec_bytes": vec_bytes, "grid": grid, "blocks_per_sm": blocks_per_sm}

@@ -116,14 +116,16 @@ def test_kernels_at_the_mesh_scenario_shape(dev, dtype, layout):
         assert torch.equal(k.fused_aggregate_2d(c, d), ref.fused_aggregate_2d(c.to(dtype), d))
 
 
-def test_relay_mix_backward_on_card(dev):
-    """dΔ = Aᵀ·g through the kernel against the plain chain's; dA = g·Δᵀ, an
+@pytest.mark.parametrize("n", [6, 64])
+def test_relay_mix_backward_on_card(dev, n):
+    """dΔ = Aᵀ·g through the kernel (its stream path at n = 6, its slab path
+    at 64) against the plain chain's; dA = g·Δᵀ, an
     f32 product of length D, within the standard forward-error bound of
     such a product around the f64 product, γ_D·(|g|·|Δ|ᵀ) with γ_D =
     D·u/(1 − D·u), u = 2⁻²⁴ (any correct f32 summation order meets it,
     the plain chain's included), and equal to ``g @ Δᵀ`` in f32 bit for
     bit (the same call)."""
-    n, D = 6, 3001
+    D = 3001
     A, _, d = _inputs(n, D, torch.float32, dev)
     cot = torch.randn_like(d)
     grads = []
@@ -140,6 +142,44 @@ def test_relay_mix_backward_on_card(dev):
     for dA, _ in grads:
         assert bool(((dA.double() - exact).abs() <= bound).all())
     assert torch.equal(grads[0][0], cot @ d.t())
+
+
+# the mix on both sides of its paths: n = 32 (the stream path's largest), 33
+# (the slab path's smallest), 64 (64-row blocks), 127 and 128 (one 128-row
+# tile), 129 and 300 (two and three, each reading Δ); D at mesh_corr_500's
+# width, the main width and one past it (an odd pitch: one-element vectors)
+@pytest.mark.parametrize("layout", ["contiguous", "row_slice"])
+@pytest.mark.parametrize("n", [32, 33, 64, 127, 128, 129, 300])
+@pytest.mark.parametrize("D", [2_410, 272_282, 272_283])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relay_mix_bitwise_equal_to_plain_version_across_paths(dev, n, D, dtype, layout):
+    A, _, d = _inputs(n, D, dtype, dev, layout)
+    got = k.relay_mix_2d(A, d)
+    assert torch.equal(got, ref.relay_mix_2d(A.to(dtype), d))
+    assert torch.equal(k.relay_mix_2d(A, d), got)
+
+
+def test_relay_mix_plan_switches_paths_and_vectors(dev):
+    """n ≤ 32 streams, n > 32 takes the slab path; both take the widest
+    vector that Δ's base address and pitch allow, so a Δ off 16 bytes (8) or
+    off one element (4) takes narrower ones than an aligned Δ (16) at a
+    16-byte pitch; the main shape runs in one wave of 128-thread blocks, and
+    at mesh_corr_500's width, with fewer column tiles than SMs, the row
+    passes spread over more blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert k.relay_mix_plan(torch.empty(32, 4096, device=dev))["path"] == "stream"
+    assert k.relay_mix_plan(torch.empty(33, 4096, device=dev))["path"] == "slab"
+    for n in (8, 64):
+        flat = torch.empty(n * 4096 + 4, device=dev)
+        for off, vec_bytes in ((0, 16), (2, 8), (1, 4)):
+            d = flat[off:off + n * 4096].view(n, 4096)
+            assert k.relay_mix_plan(d)["vec_bytes"] == vec_bytes
+    main = k.relay_mix_plan(torch.empty(10, 272_282, device=dev))
+    tiles = math.ceil(272_282 // 2 / 128)
+    assert (main["path"], main["vec_bytes"], main["threads"]) == ("stream", 8, 128)
+    assert main["grid"] == tiles <= sms * main["blocks_per_sm"]
+    mesh = k.relay_mix_plan(torch.empty(10, 2_410, device=dev))
+    assert mesh["grid"] == math.ceil(2_410 // 2 / 128) * 3  # 3 passes of 4 rows
 
 
 def test_kernels_are_bitwise_deterministic(dev):

@@ -2,6 +2,9 @@
 the operands) against the JAX package's Pallas kernels in interpret mode, and
 the wrappers' checks.  The CUDA kernels themselves are held against the plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,6 +125,39 @@ def test_fused_aggregate_plan_needs_a_cuda_tensor():
     # the plan is the CUDA launcher's own choice; a CPU Δ launches nothing
     with pytest.raises(ValueError, match="CUDA"):
         k.fused_aggregate_plan(torch.ones(3, 8))
+
+
+def test_relay_mix_plan_needs_a_cuda_tensor():
+    with pytest.raises(ValueError, match="CUDA"):
+        k.relay_mix_plan(torch.ones(3, 8))
+
+
+def _timing_tool():
+    path = Path(__file__).resolve().parents[1] / "tools" / "time_fused_aggregate.py"
+    spec = importlib.util.spec_from_file_location("time_fused_aggregate", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def test_timing_tool_kernel_option_and_shapes():
+    """The A/B timing tool parses without a GPU: the fused kernel by default
+    at the main shape and (8, 10⁷); the mix at those, mesh_corr_500's width,
+    the two LM widths and n = 32, 64 and 128 at the main width; each shape's
+    bound by the bytes below the ridge and by the FMAs at n = 128."""
+    tool = _timing_tool()
+    assert tool.parse_args([]).kernel == "fused_aggregate_2d"
+    args = tool.parse_args(["--kernel", "relay_mix_2d", "--parent", "p", "--repeat", "2"])
+    assert (args.kernel, args.parent, args.repeat) == ("relay_mix_2d", "p", 2)
+    with pytest.raises(SystemExit):
+        tool.parse_args(["--kernel", "relay_mix"])
+    assert tool.SHAPES["fused_aggregate_2d"] == ((10, 272_282), (8, 10_000_000))
+    assert tool.SHAPES["relay_mix_2d"] == (
+        (10, 272_282), (8, 10_000_000), (10, 2_410), (10, 1_443_072), (10, 3_804_416),
+        (32, 272_282), (64, 272_282), (128, 272_282))
+    bounds = [tool.KERNELS["relay_mix_2d"].bound_ms(n, D)[1]
+              for n, D in tool.SHAPES["relay_mix_2d"]]
+    assert bounds == ["bytes"] * 7 + ["operations"]
 
 
 def test_ops_backend_names():
