@@ -496,7 +496,7 @@ def _worker_loop(gen, stats: PrefetchStats, q: queue.Queue, stop: threading.Even
 
 
 def _staged_items(
-    stats, schedule, rounds, chunk, next_batch, policy, pad_to_chunk, tracer, to_device
+    stats, schedule, rounds, chunk, next_batch, policy, pad_to_chunk, tracer, place
 ):
     """The staging stream both modes share (module-level: the generator's
     frame must not pin the prefetcher — see :func:`_worker_loop`).
@@ -507,8 +507,9 @@ def _staged_items(
     thread's real timeline, in inline mode it is the staging work
     interleaved on the consumer, either way its own Perfetto row.  The
     policy's ``solve`` spans fire from inside ``relay_matrix``.
-    ``to_device`` is :func:`_to_device` bound to the prefetcher's device and
-    the consumer's stream, or the caller's ``place``.
+    ``place`` moves a host chunk to the device: :func:`_to_device` bound to
+    the prefetcher's device and the consumer's stream, or the caller's
+    ``place``.
     """
     for seg in schedule.segments(rounds):
         A = policy.relay_matrix(seg.state) if policy is not None else None
@@ -528,10 +529,10 @@ def _staged_items(
                 with tracer.span(
                     "prefetch.h2d", cat="h2d", track="prefetcher", epoch=seg.epoch_id
                 ):
-                    staged = to_device(host)
+                    staged = place(host)
             else:
                 host = _stack_host([next_batch() for _ in range(window)], pad)
-                staged = to_device(host)
+                staged = place(host)
             stats.chunks_staged += 1
             yield StagedChunk(
                 segment=seg,

@@ -194,12 +194,30 @@ def _check_square(A) -> torch.Tensor:
     return A
 
 
-def relay(A, stacked_updates):
+def _check_precision(precision) -> None:
+    """The reference's ``precision=`` of the mix: only HIGHEST exists here,
+    spelled as JAX spells it (``jax.lax.Precision.HIGHEST``, any object
+    whose ``name`` is ``"HIGHEST"``, or the strings ``"highest"`` and
+    ``"float32"``)."""
+    name = getattr(precision, "name", precision)
+    if isinstance(name, str) and name.lower() in ("highest", "float32"):
+        return
+    raise ValueError(
+        f"relay precision {precision!r} is not supported: the port computes "
+        "the mix in full f32 with TF32 off, which is the reference's "
+        "Precision.HIGHEST and nothing else; pass precision='highest'"
+    )
+
+
+def relay(A, stacked_updates, *, precision="highest"):
     """Local consensus Δx̃_r = Σ_o A[r, o] Δx_o for every relay r.
 
     ``stacked_updates``: pytree whose leaves are (n, ...) tensors.
-    Returns a pytree of identical structure/shape.
+    Returns a pytree of identical structure/shape.  ``precision`` is the
+    reference's keyword: HIGHEST (the default) is what the port computes,
+    and any other value raises ``ValueError``.
     """
+    _check_precision(precision)
     A = _check_square(A)
 
     def mix(leaf):

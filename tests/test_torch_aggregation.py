@@ -137,6 +137,34 @@ def test_relay_algebra_matches_jax():
         relay.relay(torch.ones(2, 3), tupd)
 
 
+@pytest.mark.parametrize("precision", [jax.lax.Precision.HIGHEST, "highest", "HIGHEST",
+                                       "float32"], ids=str)
+def test_relay_takes_the_reference_precision(precision):
+    """``relay(..., precision=HIGHEST)`` in any of the reference's spellings
+    is ``relay(...)`` bit for bit, and equals the reference's mix at that
+    precision."""
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((6, 6)).astype(np.float32)
+    upd = {"a": rng.standard_normal((6, 5, 3)).astype(np.float32),
+           "b": rng.standard_normal((6,)).astype(np.float32)}
+    tupd = {k: torch.from_numpy(v) for k, v in upd.items()}
+    got = relay.relay(torch.from_numpy(A), tupd, precision=precision)
+    plain = relay.relay(torch.from_numpy(A), tupd)
+    want = jax_relay.relay(A, jax.tree.map(jnp.asarray, upd),
+                           precision=jax.lax.Precision.HIGHEST)
+    for k in upd:
+        assert torch.equal(got[k], plain[k])
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-5)
+
+
+@pytest.mark.parametrize("precision", [jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGH,
+                                       "bfloat16", "default", None, 3], ids=str)
+def test_relay_refuses_other_precisions(precision):
+    upd = {"x": torch.ones(3, 2)}
+    with pytest.raises(ValueError, match="Precision.HIGHEST"):
+        relay.relay(torch.eye(3), upd, precision=precision)
+
+
 def _increment(agg, strategy, A, tau, upd, n, active):
     if strategy in ("colrel", "colrel_fused"):
         return agg.colrel_increment(A, tau, upd, n=n, fused=strategy == "colrel_fused",

@@ -2,9 +2,10 @@
 port, under the same path, with every public top-level name (and every
 public member of a class both define), read by ``ast`` without importing
 either package.  The only misses allowed are the listed ones, each with its
-reason; the list may not go stale (each entry must still be a miss).  Port-only names are allowed.  Also the
-configs the port re-declares (``configs/base.py``) keep the reference's
-fields and defaults."""
+reason; the list may not go stale (each entry must still be a miss).  Port-only names are allowed.  Every
+function and method both packages define keeps the reference's parameters,
+again with a reasoned list of exceptions.  Also the configs the port
+re-declares (``configs/base.py``) keep the reference's fields and defaults."""
 import ast
 import dataclasses
 import pathlib
@@ -36,6 +37,22 @@ NAMES_NOT_YET_PORTED = {
     "launch/attribute.py": {"os"},
 }
 MEMBERS_NOT_YET_PORTED: dict = {}
+
+# Parameters of a function both packages define that the port may lack.
+# Everywhere: the Pallas tile width and the interpret-mode switch of the TPU
+# kernels, which have no CUDA meaning (the CUDA kernels pick their own tiles
+# and have no interpreter)
+PARAMS_DROPPED = {"block_d", "interpret"}
+# Everywhere: a threefry key becomes a torch generator, or a seed where the
+# key only drew initial parameters (torch cannot draw JAX's numbers)
+PARAMS_RENAMED = {"key": {"generator", "gen", "seed"}}
+# By function: the reference parses the HLO text of a compiled step; torch
+# produces none, so the port runs the step, ``fn(*args, **kw)``, and counts
+# what it dispatches
+PARAMS_NOT_PORTED = {
+    ("launch/hlo_cost.py", "analyze"): {"text"},
+    ("launch/attribute.py", "attribute"): {"hlo_text"},
+}
 
 REF_MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py"))
 
@@ -89,6 +106,71 @@ def test_port_has_the_reference_module_and_its_names(module):
         allowed = MEMBERS_NOT_YET_PORTED.get((module, cls), set())
         assert ref_members[cls] - port_members[cls] - allowed == set(), cls
         assert allowed <= ref_members[cls] - port_members[cls], cls
+
+
+def _signatures(path: pathlib.Path) -> dict[str, list[str]]:
+    """Parameter names of every top-level function and every method of a
+    top-level class (``Class.method``), private ones included; ``*args`` and
+    ``**kw`` as written."""
+
+    def names(fn):
+        a = fn.args
+        out = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+        out += [f"*{a.vararg.arg}"] if a.vararg else []
+        return out + ([f"**{a.kwarg.arg}"] if a.kwarg else [])
+
+    sigs = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            sigs[node.name] = names(node)
+        elif isinstance(node, ast.ClassDef):
+            for b in node.body:
+                if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    sigs[f"{node.name}.{b.name}"] = names(b)
+    return sigs
+
+
+def _missing_params(module: str) -> dict[str, set[str]]:
+    """Per function both packages define: the reference's parameters the
+    port lacks, after the designed drops and renames."""
+    ref, port = _signatures(REF / module), _signatures(PORT / module)
+    out = {}
+    for fn in ref.keys() & port.keys():
+        missing = {
+            x for x in set(ref[fn]) - set(port[fn]) - PARAMS_DROPPED
+            if not PARAMS_RENAMED.get(x, set()) & set(port[fn])
+        }
+        if missing:
+            out[fn] = missing
+    return out
+
+
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_port_functions_keep_the_reference_parameters(module):
+    if not (PORT / module).exists():
+        return
+    missing = _missing_params(module)
+    allowed = {fn: names for (m, fn), names in PARAMS_NOT_PORTED.items() if m == module}
+    assert missing == allowed
+
+
+def test_parameter_exceptions_are_not_stale():
+    """Each listed exception still names a miss: the drops and the rename
+    occur somewhere, and each per-function entry names a function of both
+    packages whose listed parameters the port lacks."""
+    dropped, renamed = set(), set()
+    for module in REF_MODULES:
+        if not (PORT / module).exists():
+            continue
+        ref, port = _signatures(REF / module), _signatures(PORT / module)
+        for fn in ref.keys() & port.keys():
+            gone = set(ref[fn]) - set(port[fn])
+            dropped |= gone & PARAMS_DROPPED
+            renamed |= {x for x in gone if PARAMS_RENAMED.get(x, set()) & set(port[fn])}
+    assert dropped == PARAMS_DROPPED and renamed == set(PARAMS_RENAMED)
+    for (module, fn), names in PARAMS_NOT_PORTED.items():
+        ref, port = _signatures(REF / module), _signatures(PORT / module)
+        assert names <= set(ref[fn]) - set(port[fn]), (module, fn)
 
 
 def test_exception_lists_name_reference_modules():
