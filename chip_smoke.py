@@ -15,7 +15,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
             calls are bitwise equal and relay_mix_2d's backward, then times
             each kernel, its plain version and one PyTorch call for the same
             function, beside the card's bound for the work, at the main
-            shape, at (8, 10⁷) and at mesh_corr_500's (10, 2,410), and the
+            shape, at (8, 10⁷), at mesh_corr_500's (10, 2,410) and at the
+            channel figures' MLP (10, 789,258), and the
             mix also at n = 32, 64 and 128 on the main width (bitwise equal
             to its plain version there); prints each kernel's launch plan
             (the mix's path, vector bytes, grid, resident blocks an SM,
@@ -42,7 +43,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
             all rounds.  Prints each run's accuracy curve, final loss,
             rounds to 90% and ms a round, the reference's CSV rows, and
             whether the paper's order held (not gated).
-6. claims   the quadratic oracle of the reference's
+6. channel_figures  the beyond-paper channel figures
+            (``repro_torch.bench.figures``: the reference's
+            ``fig5_timevarying.py``, ``fig6_churn.py`` and
+            ``fig_correlated.py``) at 10 of the reference run()'s 30 rounds
+            a run and the MLP's full width (3,072 → 256 → 10, D = 789,258, n = 10, T = 8,
+            b = 64, lr 0.1, 4,000 ``cifar_like`` images), the round's p taken
+            from the channel: Figs. 5 and 6, each of the three policies
+            (blind FedAvg, the round-0 A kept stale, OPT-α re-solved per
+            epoch) through the loop, the scan engine and the pipelined engine
+            with inline and threaded prefetch (chunk 2), and the correlated
+            sweep at ℓ = 0, 0.2, 0.5, ∞ through the loop, every run on
+            ``hopper_fused``; Fig. 6's adaptive run also as paper-faithful
+            colrel on ``hopper``, and both kernel runs again on ``einsum``
+            with the same τ and batches.  Gates: each call's kernel launched
+            once a round for each of its runs and the other kernel never;
+            every loss and parameter finite; scan and pipelined losses and
+            final parameters bitwise equal to the loop's; each engine's
+            trace_count in 1..2 and its replays + eager chunks equal to its
+            chunks; each kernel run within PARAM_ATOL/LOSS_ATOL of its einsum
+            twin.  Prints the reference's CSV, scheduler and sweep_mean rows,
+            the pipelined engine's overlap_fraction, ms a round (median, the
+            first round apart) and whether each figure's claim held (not
+            gated).
+7. claims   the quadratic oracle of the reference's
             ``tests/test_fl_convergence.py`` (``repro_torch.bench.claims``):
             150 rounds a run, τ from a CUDA generator for seeds 42, 43, 44,
             every run on ``hopper_fused``.  Gates, the reference's bounds
@@ -52,7 +76,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             round; every error finite.  The kernel's shape here, (10, 20),
             is one of the kernels phase's cases.  Prints each run's error
             by seed.
-7. engines  ColRel rounds of the same model, clients and data under the
+8. engines  ColRel rounds of the same model, clients and data under the
             JAX package's Fig. 6 channel at a short coherence (Markov link
             fading on ring(10, 2), piecewise-constant p drift, rotating-cohort
             churn; epochs of unequal length), A from ``AdaptiveOptAlpha``,
@@ -76,7 +100,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             bitwise equal to eager); prints ms a round each way, the
             capture's ms, the graph pool beside one round's activations and
             the device busy share of one replayed chunk (profiler).
-8. bench    the bench harness (``repro_torch.bench.run_scenario``) on three
+9. bench    the bench harness (``repro_torch.bench.run_scenario``) on three
             registered scenarios at their registered size: bench_smoke (the
             MLP under Markov fading and p drift, 8-round epochs in chunks of
             8), resnet20_cifar (ResNet-20/GN, D = 272,282, with the
@@ -90,7 +114,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             losses; no engine above 2 captures.  Prints rounds/s, compile_s
             and trace_count per engine, the pipelined engine's overlap, the
             kernel check and model_params.
-9. sparse   the bench harness on the cohort-sampling sweeps at their
+10. sparse   the bench harness on the cohort-sampling sweeps at their
             registered sizes: sample_sweep_smoke (n = 256), _n1e3 (8 of its
             16 rounds, for time) and _n1e4 (n = 10⁴, about 28 MB of (n, D)
             f32 buffer): a sparse geometric
@@ -104,7 +128,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             equal and within 1e-5 of a float64 index_add_.  Prints rounds/s
             per engine and the loop's round split between cohort sampling,
             the sparse OPT-α solve and the round on the card.
-10. async    AsyncRoundEngine on ResNet-20/GN at full width (n = 10,
+11. async    AsyncRoundEngine on ResNet-20/GN at full width (n = 10,
             D = 272,282) under the Fig. 6 channel with churn, colrel_fused on
             ``hopper_fused`` and on ``hopper``, 20 rounds a run.  Gates: at
             ZeroDelays bitwise equal to run_rounds_loop (params, server
@@ -117,7 +141,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             rounds to the target loss for every engine.  (async_ttac_500
             runs on its own: ``python -m repro_torch.bench.run --scenario
             async_ttac_500``.)
-11. service  the continuous-training service (``repro_torch.launch``) on
+12. service  the continuous-training service (``repro_torch.launch``) on
             ResNet-20/GN at full width (n = 10, D = 272,282) under the Fig. 6
             channel with churn, AdaptiveOptAlpha and server momentum 0.9:
             ``ContinuousTrainer`` on loop, scan and pipelined with
@@ -135,7 +159,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             call.  Each kernel launched once a round on its backend and never
             on the other.  Prints ms a round per engine and ms per publish and
             per ``restore_training_state`` of the ResNet snapshot.
-12. distributed  the distributed round steps (``repro_torch.fl.distributed``)
+13. distributed  the distributed round steps (``repro_torch.fl.distributed``)
             on ResNet-20/GN at full width (n = 10, T = 2, the main phase's
             batch): ``build_round_step`` faithful on ``hopper`` and
             ``einsum``, fused on ``hopper_fused`` and ``einsum``,
@@ -162,7 +186,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             Each kernel launched once a round on its backend and never
             elsewhere.  Prints ms a round per run and the world size;
             multi-rank exchange is not measured on one card.
-13. lm       the LM model zoo (``repro_torch.models``) and its serving path.
+14. lm       the LM model zoo (``repro_torch.models``) and its serving path.
             glm4-9b at full width and depth (9,399,767,040 f32 parameters,
             drawn on the card) through ``get_model`` and
             ``launch/serve.py::_decode_demo`` at the serving CLI's defaults
@@ -219,6 +243,8 @@ SPARSE_SHAPES = ((1_000, 698), (1_025, 698), (10_000, 698))
 # the fused kernel in mesh_corr_500's kernel check: n = 10 clients of its
 # MLP (dim 64, width 32: D = 64·32 + 32 + 32·10 + 10)
 MESH_SHAPE = (10, 2_410)
+# the channel figures' MLP: 3,072 → 256 → 10 (D = 3,072·256 + 256 + 256·10 + 10)
+MLP_SHAPE = (N_CLIENTS, 789_258)
 # the mix timed at the main width for more clients: n = 32 (its stream
 # path's largest n) and its slab path at 64 and 128 (the JAX kernel's regime)
 MIX_WIDE_SHAPES = tuple((n, RESNET20_D) for n in (32, 64, 128))
@@ -229,9 +255,10 @@ MIX_WIDE_SHAPES = tuple((n, RESNET20_D) for n in (32, 64, 128))
 # n across the fused kernel's origin chunks (6, 12 and 24 origins for 16-,
 # 8- and 4- or 2-byte loads; 16 for a chunk of 16) and across the mix's
 # paths (32 the stream path's last, 33 the slab path's first); D = 20 is
-# the claims phase's quadratic (n = 10)
+# the claims phase's quadratic (n = 10), D = 789,258 the channel figures' MLP
 SWEEP_N = (1, 7, 10, 12, 13, 15, 16, 17, 24, 25, 32, 33, 64, 128, 300)
-SWEEP_D = (1, 3, 20, 100, MESH_SHAPE[1], 4097, 5000, RESNET20_D, RESNET20_D + 1)
+SWEEP_D = (1, 3, 20, 100, MESH_SHAPE[1], 4097, 5000, RESNET20_D, RESNET20_D + 1,
+           MLP_SHAPE[1])
 ATOL, RTOL_F32, RTOL_BF16 = 1e-5, 1e-5, 2.0**-7
 PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
 
@@ -240,6 +267,12 @@ PARAM_ATOL = LOSS_ATOL = 1e-4  # a kernel run against its plain twin, 5 rounds
 # images and an evaluation every 2 rounds; 10 of the reference's 30 rounds a
 # run, for time (16 runs of about half a second a round)
 FIG_ROUNDS = 10
+
+# channel_figures phase: the reference's channel studies at the MLP's full
+# width, 10 of its run()'s 30 rounds a run (6 link epochs, a p change at
+# round 5, cohort shifts at 4 and 8), for time: 39 runs of host-bound rounds
+# at 60-130 ms took 104.0 s at 30 rounds and 75.5 s at 16 on an H100 host
+CHANNEL_ROUNDS = 10
 
 # engines phase: the Fig. 6 channel at a coherence of a few rounds, so that
 # 12 rounds cross epochs of unequal length (6, 2 and 4) and chunk 4 leaves
@@ -409,7 +442,7 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {("mix", "f32"): 0.0, ("mix", "bf16"): 0.0,
              ("fused", "f32"): 0.0, ("fused", "bf16"): 0.0}
-    main_err, mesh_err = {}, {}
+    main_err, mesh_err, mlp_err = {}, {}, {}
     cases = 0
     # information, not a gate: f32 cases bitwise equal to the plain version
     # (the kernels' order) and to the library product (cuBLAS's order)
@@ -448,6 +481,8 @@ def phase_kernels() -> dict:
                         main_err = {"mix": e_mix, "fused": e_fused}
                     if (n, D) == MESH_SHAPE and tag == "f32" and not layout:
                         mesh_err = {"mix": e_mix, "fused": e_fused}
+                    if (n, D) == MLP_SHAPE and tag == "f32" and not layout:
+                        mlp_err = {"mix": e_mix, "fused": e_fused}
                     cases += 2
     torch.cuda.synchronize()
     print(f"kernels: {cases} cases within tolerance, each call bitwise repeatable; max |Δ| "
@@ -476,7 +511,8 @@ def phase_kernels() -> dict:
 
     # times: kernel, plain version, one PyTorch call; f32 as on the main path
     timing = {"relay_mix_2d": {}, "fused_aggregate_2d": {}}
-    for label, (n, D) in (("main", MAIN_SHAPE), ("large", LARGE_SHAPE), ("mesh", MESH_SHAPE)):
+    for label, (n, D) in (("main", MAIN_SHAPE), ("large", LARGE_SHAPE), ("mesh", MESH_SHAPE),
+                          ("mlp", MLP_SHAPE)):
         # rotate over enough Δ copies that the working set exceeds 2× L2,
         # so each call finds Δ in device memory, as the round does
         copies = max(1, math.ceil(2 * L2_BYTES / (4 * n * D)))
@@ -587,7 +623,8 @@ def phase_kernels() -> dict:
               + json.dumps({key: v for key, v in t.items() if key != "shape"}))
         del ds, args
     torch.cuda.empty_cache()
-    return {"worst": worst, "main_err": main_err, "mesh_err": mesh_err, "timing": timing}
+    return {"worst": worst, "main_err": main_err, "mesh_err": mesh_err, "mlp_err": mlp_err,
+            "timing": timing}
 
 
 def device_busy_ms(prof) -> tuple[float, int]:
@@ -804,6 +841,133 @@ def phase_figures() -> dict:
     print(f"figures order: fig4 ColRel ahead of both FedAvg-dropout runs in accuracy "
           f"{acc['fig4', 'colrel_optimized'] > fedavg}; fig3 optimized >= unoptimized "
           f"{acc['fig3', 'colrel_optimized'] >= acc['fig3', 'colrel_unoptimized']}")
+    return launches
+
+
+def phase_channel_figures() -> dict:
+    """The beyond-paper channel figures at the MLP's full width on the card;
+    see the module docstring for the gates.  Returns each kernel's launches
+    over the phase's runs."""
+    import numpy as np
+
+    from repro_torch.bench import figures
+    from repro_torch.kernels import relay_mix as k
+
+    R, hold = CHANNEL_ROUNDS, figures.HOLD
+    kernel_of = {"hopper": "relay_mix_2d", "hopper_fused": "fused_aggregate_2d"}
+    launches = {"relay_mix_2d": 0, "fused_aggregate_2d": 0}
+
+    def run(label, make_schedule, eval_round, engine, backend="hopper_fused", policies=None,
+            prefetch="inline"):
+        policies = figures.channel_policies() if policies is None else policies
+        k.reset_launches()
+        res = figures.run_channel_figure(make_schedule, rounds=R, eval_round=eval_round,
+                                         policies=policies, engine=engine, prefetch=prefetch,
+                                         relay_backend=backend)
+        got = dict(k.LAUNCHES)
+        want = {name: R * len(res) if name == kernel_of.get(backend) else 0 for name in got}
+        if got != want:
+            fail(f"channel_figures {label} on {backend}: kernel launches {got}, expected "
+                 f"{want} (once a round for each of {len(res)} runs)")
+        for name in launches:
+            launches[name] += got[name]
+        chunks = sum(math.ceil(s.n_rounds / hold) for s in make_schedule().segments(R))
+        for name, r in res.items():
+            tag = f"channel_figures {label} {name} {policies[name][0]}/{backend}"
+            if len(r.losses) != R or not all(math.isfinite(x) for x in r.losses):
+                fail(f"{tag}: losses {r.losses} not {R} finite values")
+            if not all(bool(torch.isfinite(x).all()) for x in _leaves(r.params)):
+                fail(f"{tag}: non-finite parameters")
+            ms = sorted(r.round_ms[1:])
+            line = (f"{tag}: final acc {r.accs[-1][1]:.4f} final_loss {r.losses[-1]:.6f} ms a "
+                    f"round median {ms[len(ms) // 2]:.3f} (first {r.round_ms[0]:.3f})")
+            c = r.engine_counts
+            if c is not None:
+                if not 0 < c["trace_count"] <= 2:
+                    fail(f"{tag}: trace_count {c['trace_count']} not in 1..2")
+                if c["replays"] + c["eager_chunks"] != chunks:
+                    fail(f"{tag}: {c['replays']} replays + {c['eager_chunks']} eager chunks for "
+                         f"{chunks} chunks")
+                line += (f"; trace_count {c['trace_count']}, replays {c['replays']}, "
+                         f"eager_chunks {c['eager_chunks']}")
+                if engine == "pipelined":
+                    st = c["prefetch_stats"]
+                    line += (f"; overlap_fraction {st.overlap_fraction:.4f} (steady "
+                             f"{st.steady_overlap_fraction:.4f})")
+            print(line)
+        return res
+
+    def every_2nd(r):
+        return r % 2 == 0 or r == R - 1
+
+    engines = (("loop", "loop", "inline"), ("scan", "scan", "inline"),
+               ("pipelined_inline", "pipelined", "inline"),
+               ("pipelined_thread", "pipelined", "thread"))
+    claims = {}
+    for figure, make in (("fig5", figures.fig5_schedule), ("fig6", figures.fig6_schedule)):
+        def schedule(make=make):
+            return make(N_CLIENTS, seed=7)  # the reference's seed + 7, seed 0
+
+        by_engine = {label: run(f"{figure} {label}", schedule, every_2nd, engine,
+                                prefetch=prefetch)
+                     for label, engine, prefetch in engines}
+        loop = by_engine["loop"]
+        for label, res in by_engine.items():
+            print(f"channel_figures {figure} {label} rows:")
+            figures.print_figure_csv(figure, res)
+            print(figures.scheduler_line(figure, res["colrel_adaptive"].policy.stats))
+            for name, r in res.items():
+                if r.losses != loop[name].losses or not _bitwise_equal(r.params,
+                                                                       loop[name].params):
+                    fail(f"channel_figures {figure} {label} {name}: losses or parameters differ "
+                         f"from the loop's")
+        print(f"channel_figures {figure}: scan, pipelined inline and pipelined thread bitwise "
+              f"equal to the loop (per-round losses, final parameters) for every policy")
+        fin = {name: (r.accs[-1][1], r.losses[-1]) for name, r in loop.items()}
+        a, s, b = fin["colrel_adaptive"], fin["colrel_stale"], fin["fedavg_dropout_blind"]
+        claims[figure] = ((a[0] >= s[0] >= b[0] and a[1] < s[1] < b[1]) if figure == "fig5"
+                          else (a[0] >= b[0] and a[1] <= b[1]))
+        if figure != "fig6":
+            continue
+        # Fig. 6's adaptive run once more as paper-faithful colrel on the
+        # mix kernel, and each kernel run against its einsum twin (the same
+        # τ and batches), as the figures phase holds its kernel runs
+        make_policy = figures.channel_policies()["colrel_adaptive"][1]
+        adaptive = {"colrel_adaptive": ("colrel_fused", make_policy)}
+        faithful = {"colrel_adaptive": ("colrel", make_policy)}
+        pairs = {
+            ("colrel_fused", "hopper_fused"): (loop["colrel_adaptive"], adaptive),
+            ("colrel", "hopper"): (run("fig6 loop", schedule, every_2nd, "loop", "hopper",
+                                       faithful)["colrel_adaptive"], faithful),
+        }
+        for (strategy, backend), (kernel_run, policies) in pairs.items():
+            twin = run("fig6 loop", schedule, every_2nd, "loop", "einsum",
+                       policies)["colrel_adaptive"]
+            dl = float(np.max(np.abs(np.subtract(kernel_run.losses, twin.losses))))
+            dp = max((x - y).abs().max().item()
+                     for x, y in zip(_leaves(kernel_run.params), _leaves(twin.params)))
+            print(f"channel_figures fig6/colrel_adaptive {strategy}/{backend} vs "
+                  f"{strategy}/einsum: max |Δloss| {dl:.3g}, max |Δparam| {dp:.3g} after {R} "
+                  f"rounds")
+            if dl > LOSS_ATOL or dp > PARAM_ATOL:
+                fail(f"channel_figures fig6 {strategy}/{backend} disagrees with einsum: "
+                     f"|Δloss| {dl} |Δparam| {dp}")
+
+    corr = {}
+    for ell in figures.CORR_SWEEP:
+        res = run(f"fig_corr ell={figures.ell_label(ell)} loop",
+                  lambda ell=ell: figures.corr_schedule(N_CLIENTS, ell, seed=7),
+                  lambda r: r % hold == hold - 1 or r == R - 1, "loop")
+        corr.update({f"{name}@ell={figures.ell_label(ell)}": r for name, r in res.items()})
+    figures.print_figure_csv("fig_corr", corr)
+    sweep = figures.sweep_mean_line(corr)
+    print(sweep)
+    claims["fig_corr"] = all(f"{check}=True" in sweep.split(";") for check in (
+        "adaptive_ge_stale_ge_fedavg_acc", "adaptive_le_stale_le_fedavg_loss"))
+    print("channel_figures claims (not gated): fig5 adaptive > stale > FedAvg in final loss, "
+          f">= in final accuracy {claims['fig5']}; fig6 adaptive >= FedAvg in final accuracy "
+          f"and <= in final loss {claims['fig6']}; fig_corr adaptive >= stale >= FedAvg in mean "
+          f"accuracy and <= in mean final loss {claims['fig_corr']}")
     return launches
 
 
@@ -2190,6 +2354,8 @@ def main() -> int:
     runs = phase_main()
     t_fig = time.perf_counter()
     fig_launches = phase_figures()
+    t_channel = time.perf_counter()
+    channel_launches = phase_channel_figures()
     t_claims = time.perf_counter()
     claims_launches = phase_claims()
     t_engines = time.perf_counter()
@@ -2205,7 +2371,8 @@ def main() -> int:
     dist_launches = phase_distributed()
     t_lm = time.perf_counter()
     lm = phase_lm()
-    print(f"phases: figures {t_claims - t_fig:.1f} s, claims {t_engines - t_claims:.1f} s, "
+    print(f"phases: figures {t_channel - t_fig:.1f} s, channel_figures "
+          f"{t_claims - t_channel:.1f} s, claims {t_engines - t_claims:.1f} s, "
           f"sparse {t_async - t_sparse:.1f} s, async {t_service - t_async:.1f} s, "
           f"service {t_dist - t_service:.1f} s, distributed {t_lm - t_dist:.1f} s, "
           f"lm {time.perf_counter() - t_lm:.1f} s")
@@ -2225,7 +2392,8 @@ def main() -> int:
             "launches": launches[name],
             # each path's own count, from zero just before it: the main
             # phase's 5 rounds, the figures phase's runs (10 rounds each on
-            # the kernel's backend), the claims phase's 10 quadratic runs of
+            # the kernel's backend), the channel figures' runs (10 rounds each
+            # on the kernel's backend), the claims phase's 10 quadratic runs of
             # 150 rounds, the engines phase's four runs of 12, the
             # bench phase's kernel checks (cold and warm passes), the sample
             # sweeps' engines (cold and warm, the segment reduce), the
@@ -2235,6 +2403,7 @@ def main() -> int:
             "launches_by_path": {
                 "main": launches[name],
                 "figures": fig_launches[name],
+                "channel_figures": channel_launches[name],
                 "claims": claims_launches[name],
                 "engines": engine_launches[name],
                 "bench": bench_launches[name],
@@ -2261,6 +2430,10 @@ def main() -> int:
                         ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                          "plan")},
                      "max_abs_err": kern["mesh_err"][e]},
+            "mlp": {**{key: kern["timing"][name]["mlp"][key] for key in
+                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "plan")},
+                    "max_abs_err": kern["mlp_err"][e]},
             **{key: kern["timing"][name][key] for key in ("sparse", "wide")
                if key in kern["timing"][name]},
             "lm": lm["times"][name],

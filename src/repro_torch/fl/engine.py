@@ -821,18 +821,22 @@ def run_rounds_loop(
     policy=None,
     on_round: Callable | None = None,
     tracer=None,
+    taus=None,
 ):
     """The per-round reference loop: one ``run_round`` per round and, like
     the JAX package's per-round loop, a host read of the round's loss
     (``float(...)``, a device sync per round).  Factored out so engine
     comparisons share one definition.  ``tracer`` records per-round
     stage/dispatch/sync spans (the loop already syncs per round, so tracing
-    adds no extra fence here).
+    adds no extra fence here).  ``taus``: a (rounds, n) array whose row i is
+    round i's uplink mask, used instead of drawing from ``generator`` (the
+    cross-package tests hand over the JAX package's τ stream this way).
     Returns ``(params, server_state, per_round_metrics, generator)``."""
     tracer = NULL_TRACER if tracer is None else tracer
     all_metrics = []
-    for state in schedule.rounds(rounds):
+    for i, state in enumerate(schedule.rounds(rounds)):
         A = policy.relay_matrix(state) if policy is not None else None
+        tau = None if taus is None else taus[i]
         if tracer.enabled:
             with tracer.span("loop.stage", cat="stage", round=state.round):
                 batch = sim._to_device(next_batch())
@@ -846,6 +850,7 @@ def run_rounds_loop(
                     A=A,
                     p=state.p,
                     active=state.active,
+                    tau=tau,
                 )
             with tracer.span(
                 "loop.sync", cat="device", track="device", round=state.round
@@ -862,6 +867,7 @@ def run_rounds_loop(
                 A=A,
                 p=state.p,
                 active=state.active,
+                tau=tau,
             )
             float(m["loss"])  # the per-round host sync of the reference loop
         all_metrics.append(m)
