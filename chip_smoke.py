@@ -18,9 +18,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
             shape, at (8, 10⁷), at mesh_corr_500's (10, 2,410) and at the
             channel figures' MLP (10, 789,258), and the
             mix also at n = 32, 64 and 128 on the main width (bitwise equal
-            to its plain version there); prints each kernel's launch plan
-            (the mix's path, vector bytes, grid, resident blocks an SM,
-            threads a block) at each.
+            to its plain version there), and the fused kernel at the sample
+            sweeps' shapes (n = 256 … 10⁴, D = 698; bitwise equal to its
+            plain version in its two-level order); fails where the fused
+            kernel's f32 output at a shape with one origin range (S = 1) is
+            not the single ascending chain; prints each kernel's launch plan
+            (the mix's path, the fused kernel's origin ranges S, vector
+            bytes, grid, resident blocks an SM, threads a block) at each.
 4. main     ColRel rounds of ResNet-20/GN at full width (D = 272,282) for
             n = 10 clients through ``FLSimulator``, four times on the same
             τ and batches: colrel on ``hopper`` and on ``einsum``,
@@ -237,9 +241,10 @@ RESNET20_D = 272_282
 MAIN_SHAPE = (N_CLIENTS, RESNET20_D)
 LARGE_SHAPE = (8, 10_000_000)  # the JAX package's relay_sweep_1e7 size
 # the segment backend's dense reduce in the sample sweeps (the MLP's
-# D = 698): n past the fused kernel's 1,024 shared-memory coefficients
-# (kCoeffChunk), one past it, and the sweep's top
-SPARSE_SHAPES = ((1_000, 698), (1_025, 698), (10_000, 698))
+# D = 698): sample_sweep_smoke's n, n1e3's, one past the 1,024
+# coefficients the single-chain kernel stages at once, and n1e4's; all
+# summed in fused_splits ranges (4, 16, 17 and 157)
+SPARSE_SHAPES = ((256, 698), (1_000, 698), (1_025, 698), (10_000, 698))
 # the fused kernel in mesh_corr_500's kernel check: n = 10 clients of its
 # MLP (dim 64, width 32: D = 64·32 + 32 + 32·10 + 10)
 MESH_SHAPE = (10, 2_410)
@@ -357,6 +362,17 @@ def check_close(name, got, want, rtol) -> float:
     return err.max().item()
 
 
+def single_chain(c, d):
+    """u = c·Δ as one ascending addcmul chain over all n origins from 0 (in
+    Δ's dtype's weights): the fused kernel's order wherever fused_splits
+    gives S = 1."""
+    c, d32 = c.to(d.dtype).float(), d.float()
+    out = torch.zeros_like(d32[0])
+    for j in range(d.shape[0]):
+        out = torch.addcmul(out, c[j], d32[j])
+    return out.to(d.dtype)
+
+
 def device_ms(fn, arg_sets, reps: int) -> float:
     """Device time of one call, from CUDA events around a CUDA graph of
     ``reps`` back-to-back calls (no host launch gaps), cycling through
@@ -445,8 +461,10 @@ def phase_kernels() -> dict:
     main_err, mesh_err, mlp_err = {}, {}, {}
     cases = 0
     # information, not a gate: f32 cases bitwise equal to the plain version
-    # (the kernels' order) and to the library product (cuBLAS's order)
+    # (the kernels' order) and to the library product (cuBLAS's order).  A
+    # gate: the fused kernel's f32 output wherever S = 1 is the single chain
     same = {"plain": 0, "library": 0, "f32 cases": 0}
+    single = 0
     for n in SWEEP_N:
         for D in SWEEP_D:
             A = torch.randn(n, n, generator=gen, device=dev) / math.sqrt(n)
@@ -470,6 +488,10 @@ def phase_kernels() -> dict:
                     if not (torch.equal(k.relay_mix_2d(A, d), m)
                             and torch.equal(k.fused_aggregate_2d(c, d), u)):
                         fail(f"{name}: two calls of a kernel differ")
+                    if tag == "f32" and k.fused_splits(n, D) == 1:
+                        if not torch.equal(u, single_chain(c, d)):
+                            fail(f"fused_aggregate_2d {name}: S = 1 but not the single chain")
+                        single += 1
                     if tag == "f32":
                         same["f32 cases"] += 2
                         same["plain"] += (torch.equal(m, ref.relay_mix_2d(A, d))
@@ -488,7 +510,8 @@ def phase_kernels() -> dict:
     print(f"kernels: {cases} cases within tolerance, each call bitwise repeatable; max |Δ| "
           + ", ".join(f"{a} {b} {v:.3g}" for (a, b), v in worst.items()))
     print(f"kernels: bitwise equal to the plain version in {same['plain']} and to the "
-          f"library product in {same['library']} of {same['f32 cases']} f32 cases")
+          f"library product in {same['library']} of {same['f32 cases']} f32 cases; the "
+          f"fused kernel equal to the single chain in all {single} f32 cases with S = 1")
 
     # backward of the mix: (dA, dΔ) against autograd through the library
     # product.  Not through the plain version: its autograd reduces
@@ -547,9 +570,11 @@ def phase_kernels() -> dict:
             plan = k.relay_mix_plan if name == "relay_mix_2d" else k.fused_aggregate_plan
             t["plan"] = {"f32": plan(ds[0]), "bf16": plan(ds[0].to(torch.bfloat16))}
             if name == "fused_aggregate_2d":
+                u = k.fused_aggregate_2d(c, ds[0])
+                if not torch.equal(u, single_chain(c, ds[0])):
+                    fail(f"fused_aggregate_2d {label}: S = 1 but not the single chain")
                 # information, not a gate: cuBLAS sums in another order
-                t["bitwise_equal_c_at_delta"] = torch.equal(
-                    k.fused_aggregate_2d(c, ds[0]), c @ ds[0])
+                t["bitwise_equal_c_at_delta"] = torch.equal(u, c @ ds[0])
             timing[name][label] = t
             print(f"time {name} {label} (n={n}, D={D}, {copies} Δ copies): "
                   + json.dumps({key: v for key, v in t.items() if key != "shape"}))
@@ -589,8 +614,9 @@ def phase_kernels() -> dict:
         torch.cuda.empty_cache()
 
     # the fused kernel at the segment backend's shapes: bitwise equal to the
-    # plain version (the same ascending fmaf chain) and repeatable, then
-    # timed beside c @ Δ and the bound
+    # plain version (the same two-level order: fused_splits ranges, each an
+    # ascending fmaf chain, then the partials in ascending order) and
+    # repeatable, then timed beside c @ Δ and the bound
     timing["fused_aggregate_2d"]["sparse"] = []
     for n, D in SPARSE_SHAPES:
         c = torch.randn(n, generator=gen, device=dev) / math.sqrt(n)
@@ -618,7 +644,8 @@ def phase_kernels() -> dict:
             "plan": k.fused_aggregate_plan(ds[0]),
         }
         timing["fused_aggregate_2d"]["sparse"].append(t)
-        print(f"time fused_aggregate_2d sparse (n={n}, D={D}, {copies} Δ copies; f32 and "
+        print(f"time fused_aggregate_2d sparse (n={n}, D={D}, splits {t['plan']['splits']}, "
+              f"grid {t['plan']['grid']}, {copies} Δ copies; f32 and "
               f"bf16 bitwise equal to the plain version): "
               + json.dumps({key: v for key, v in t.items() if key != "shape"}))
         del ds, args

@@ -27,23 +27,31 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# the C launchers of csrc/relay_mix.cu:
-#   int fn(const void* w, const void* delta, void* out, int n, long long D,
-#          int dtype, void* stream)
-_LAUNCHERS = ("relay_mix_2d_launch", "fused_aggregate_2d_launch")
-_LAUNCHER_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-]
+# the C entry points of csrc/relay_mix.cu and their arguments:
+#   int relay_mix_2d_launch(const void* A, const void* delta, void* out, int n,
+#                           long long D, int dtype, void* stream)
+#   int fused_aggregate_2d_launch(const void* c, const void* delta, void* out,
+#                                 int n, long long D, int dtype, int splits,
+#                                 void* partials, void* counters,
+#                                 long long counters_len, void* stream)
+#   long long fused_aggregate_2d_workspace(long long D, int splits,
+#                                          long long* counters)
+#   unsigned long long stream_capture_id(void* stream)
 # and each kernel's launch plan (launches nothing):
-#   int relay_mix_2d_plan(const void* delta, void* out, int n,
-#                         long long D, int dtype, int* plan)   // plan[5]
-#   int fused_aggregate_2d_plan(...)                           // plan[3]
-_PLANS = ("relay_mix_2d_plan", "fused_aggregate_2d_plan")
-_PLAN_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-    ctypes.POINTER(ctypes.c_int),
-]
+#   int relay_mix_2d_plan(const void* delta, void* out, int n, long long D,
+#                         int dtype, int* plan)                  // plan[5]
+#   int fused_aggregate_2d_plan(const void* delta, void* out, int n,
+#                               long long D, int dtype, int splits,
+#                               int* plan)                       // plan[5]
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    "relay_mix_2d_launch": (_I, [_P, _P, _P, _I, _LL, _I, _P]),
+    "fused_aggregate_2d_launch": (_I, [_P, _P, _P, _I, _LL, _I, _I, _P, _P, _LL, _P]),
+    "fused_aggregate_2d_workspace": (_LL, [_LL, _I, ctypes.POINTER(_LL)]),
+    "stream_capture_id": (ctypes.c_ulonglong, [_P]),
+    "relay_mix_2d_plan": (_I, [_P, _P, _I, _LL, _I, ctypes.POINTER(_I)]),
+    "fused_aggregate_2d_plan": (_I, [_P, _P, _I, _LL, _I, _I, ctypes.POINTER(_I)]),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,13 +108,13 @@ def build(*, verbose: bool = False) -> BuildResult:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once a process)."""
-    lib = ctypes.CDLL(str(build().path))
-    for name in _LAUNCHERS:
+    return bind(ctypes.CDLL(str(build().path)))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' types on a loaded kernel library."""
+    for name, (restype, argtypes) in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _LAUNCHER_ARGTYPES
-        fn.restype = ctypes.c_int
-    for name in _PLANS:
-        fn = getattr(lib, name)
-        fn.argtypes = _PLAN_ARGTYPES
-        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib

@@ -9,12 +9,15 @@
 //
 // Dtype rules (both kernels, as in the Pallas versions): the weights are
 // rounded to Δ's dtype (f32 or bf16) before the product, every sum is taken
-// in f32 in ascending origin order with fmaf from 0, and the result is
-// stored in Δ's dtype.  No atomics and no split of the origins across
-// blocks or threads: each output element is one thread's one chain, so two
-// calls are bitwise equal, as is any kernel that sums the same chain (the
-// plain versions in kernels/ref.py do).  The kernels launch on the caller's
-// stream, never synchronise and allocate nothing.
+// in f32 with fmaf from 0 in ascending origin order, and the result is
+// stored in Δ's dtype.  No atomics on data: each output element is summed
+// in one fixed order that depends on (n, D) only, so two calls are bitwise
+// equal, as is any code that sums in the same order (the plain versions in
+// kernels/ref.py do).  relay_mix_2d sums each element in one chain over all
+// n origins; so does fused_aggregate_2d with one origin range (S = 1), and
+// with S > 1 it sums each range in one chain and then adds the S partials
+// (below).  The kernels launch on the caller's stream, never synchronise and
+// allocate nothing (the split reduction's scratch comes from the caller).
 //
 // Vectors.  Both kernels read Δ in vectors of V elements: the widest of 16,
 // 8 or 4 bytes that divides Δ's base address, the output's base address and
@@ -92,6 +95,37 @@
 //     up to 96 registers on the chunk's addresses and weights; then blocks
 //     run a second tile, and a call at the main shape takes 1.5× as long
 //     (NVIDIA H100 80GB HBM3 at 700 W, tools/time_fused_aggregate.py).
+//   That is the whole kernel when the caller passes S = 1 origin range
+//   (fused_aggregate_kernel).  Many clients at a small D (the sample
+//   sweeps' (10⁴, 698): 3 column tiles, so 3 blocks on 132 SMs, each thread
+//   waiting on memory 834 times) take S > 1 (fused_aggregate_split_kernel):
+//   the order is then two-level, and S comes from the caller (kernels/ref.py's
+//   fused_splits, a function of (n, D) only, so neither the card, the dtype
+//   nor Δ's alignment changes the bits):
+//   * range s holds origins [s·L, min(n, (s+1)·L)), L = ⌈n/S⌉, each range
+//     non-empty; it is summed in one ascending fmaf chain from 0 into an f32
+//     partial, and the S partials are added from 0 in ascending s with f32
+//     adds; the result is rounded once to Δ's dtype;
+//   * a block owns one (column tile of kSplitThreads vectors, range) pair,
+//     the tiles of a range consecutive blocks (so the blocks that run
+//     together read whole rows), and the grid is tiles × S (1,727 blocks
+//     of 8 warps at (10⁴, 698) f32);
+//   * the block's kSplitWarps warps copy the range's L rows of the tile into
+//     shared memory with cp.async, a row a warp in turn, all in flight
+//     before one wait; c's L weights are staged beside them; warp 0 sums;
+//   * the partials (S, D) f32 go to the caller's scratch, then one
+//     acquire-release atomic add on the tile's counter: the block that
+//     brings it to S adds the tile's S partials in ascending s (its warps
+//     copy them in 16-byte pieces with cp.async.cg, which reads L2 and never
+//     a stale L1), whichever block that is, and sets the counter back to 0.
+//     The counter is the only atomic.  The counters come from the caller
+//     zeroed and go back zeroed, so no launch needs a memset (a captured
+//     cudaMemsetAsync took 2.5 µs a call at (256, 698)); the caller keeps
+//     two launches that may run at once from sharing them
+//     (kernels/relay_mix.py);
+//   * a warp keeps few loads in flight: one warp a block took 6 µs to read
+//     157 partials at (10⁴, 698), so every phase's copies are the block's.
+//     (Times: NVIDIA H100 80GB HBM3 at 700 W, tools/time_fused_aggregate.py.)
 //
 // Interface: plain C launchers, loaded with ctypes.  Each returns
 // cudaGetLastError() (or the error of a failed query) as an int
@@ -126,6 +160,17 @@ constexpr int kCoeffChunk = 1024;   // coefficients of c staged per pass
 constexpr int kFusedThreads = 128;  // threads per block of the fused kernel
 constexpr int kFusedMinBlocks = 9;  // resident blocks an SM: ≤ 56 registers a thread
 constexpr int kChunkRegs = 24;      // registers of Δ a thread loads before it sums
+// fused_aggregate_2d split over S > 1 origin ranges.  Chosen with
+// tools/time_fused_aggregate.py (NVIDIA H100 80GB HBM3, 700 W; f32 µs at
+// n = 256 / 1,000 / 1,025 / 10⁴, D = 698): 8 warps and 16 KB chunks
+// 4.22 / 5.19 / 5.23 / 17.04; 4 warps and 46 KB 4.32 / 5.44 / 5.46 / 18.39;
+// tiles of 64 vectors 4.55 / 5.28 / 5.28 / 17.13, of 128 5.17 / 5.41 /
+// 5.51 / 19.26; one warp a block 4.74 / 6.22 / 6.33 / 22.57
+constexpr int kSplitThreads = 32;              // column vectors a tile: a lane each
+constexpr int kSplitWarps = 8;                 // warps a block
+constexpr int kSplitMaxRange = 128;            // origins a range at most
+constexpr int kSplitSmemBytes = 46 * 1024;     // dynamic shared memory a block (+ c_s < 48 KB)
+constexpr int kSplitPartialBytes = 16 * 1024;  // a chunk of partials the last block adds
 
 template <typename T>
 struct Io;
@@ -325,6 +370,11 @@ __device__ __forceinline__ void copy_commit() {
 // every committed group but the newest one has landed
 __device__ __forceinline__ void copy_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// every copy this thread issued has landed
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 constexpr int kSlabThreads = kSlabWarps * 32;
@@ -536,17 +586,155 @@ __global__ void __launch_bounds__(kFusedThreads, kFusedMinBlocks)
   }
 }
 
+// V consecutive floats of device memory (aligned to V floats)
+template <int V>
+__device__ __forceinline__ void store_floats(float* p, const float (&a)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      reinterpret_cast<float4*>(p)[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2],
+                                                    a[4 * q + 3]);
+    }
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+  } else {
+    static_assert(V == 1, "a vector holds 1, 2 or a multiple of 4 elements");
+    p[0] = a[0];
+  }
+}
+
+// floats between two ranges' partials: D rounded up to 16 bytes
+__host__ __device__ constexpr long long split_pitch(long long D) { return (D + 3) / 4 * 4; }
+
+// the tile counter's add: acquire-release at device scope, so the block's
+// partials (ordered before it by the barrier that precedes it) are visible
+// to the block that reads the final count, and that block sees every other
+// block's partials (the CUTLASS split-K semaphore's pattern)
+__device__ __forceinline__ unsigned count_tile(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(counter)
+               : "memory");
+  return old;
+}
+
+// Δ viewed as (n, D / V) vectors of V elements.  Block b sums origin range
+// s = b / tiles of column tile b mod tiles (kSplitThreads vectors, a lane each) into
+// partials[s] (pitch split_pitch(D)); the tile's last block to finish adds
+// its S partials.  The block's kSplitWarps warps share the copies; warp 0
+// sums.  smem bytes of dynamic shared memory hold the range's vectors, then
+// chunk_rows rows of the tile's partials at a time.
+template <typename T, int V>
+__global__ void __launch_bounds__(kSplitThreads * kSplitWarps)
+    fused_aggregate_split_kernel(const float* __restrict__ c, const T* __restrict__ delta,
+                                 T* __restrict__ out, int n, long long D, int splits,
+                                 int chunk_rows, float* __restrict__ partials,
+                                 unsigned* __restrict__ counters) {
+  using Vec = typename Raw<V * static_cast<int>(sizeof(T))>::type;
+  constexpr int VB = V * static_cast<int>(sizeof(T));
+  constexpr int kRowFloats = kSplitThreads * V;  // a tile's row of partials
+  constexpr int kThreads = kSplitThreads * kSplitWarps;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  __shared__ float c_s[kSplitMaxRange];
+  __shared__ bool last;
+  const long long dv = D / V;
+  const long long pitch = split_pitch(D);
+  const int range = (n + splits - 1) / splits;
+  const long long tiles = (dv + kSplitThreads - 1) / kSplitThreads;
+  const int s = static_cast<int>(blockIdx.x / tiles);
+  const long long tile = blockIdx.x % tiles;
+  const int o0 = s * range;
+  const int oc = min(range, n - o0);
+  const int lane = threadIdx.x % kSplitThreads;
+  const int warp = threadIdx.x / kSplitThreads;
+  const long long v = tile * kSplitThreads + lane;
+  const bool live = v < dv;
+  // stage[k · kSplitThreads + lane] = vector v of origin o0 + k, copied by
+  // warp k mod kSplitWarps: all of the range's copies in flight at once
+  Vec* stage = reinterpret_cast<Vec*>(split_smem);
+  if (live) {
+    const Vec* src = reinterpret_cast<const Vec*>(delta) + o0 * dv + v;
+#pragma unroll 4
+    for (int k = warp; k < oc; k += kSplitWarps) {
+      copy_async<VB>(stage + k * kSplitThreads + lane, src + k * dv, true);
+    }
+  }
+  for (int k = threadIdx.x; k < oc; k += kThreads) c_s[k] = Io<T>::round(c[o0 + k]);
+  copy_wait_all();
+  __syncthreads();
+  if (warp == 0 && live) {
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < oc; ++k) {
+      const Vec x = stage[k * kSplitThreads + lane];
+      const T* e = reinterpret_cast<const T*>(&x);
+      const float w = c_s[k];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = fmaf(w, Io<T>::to_float(e[j]), acc[j]);
+    }
+    store_floats<V>(partials + s * pitch + v * V, acc);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = count_tile(counters + tile) == static_cast<unsigned>(splits - 1);
+    if (last) counters[tile] = 0;  // every block of the tile has counted
+  }
+  __syncthreads();
+  if (!last) return;
+  // the tile's S partials, chunk_rows rows at a time, in 16-byte pieces that
+  // start before D (a row of the tile is kRowFloats floats, 16-byte aligned)
+  const long long col0 = tile * kRowFloats;
+  const int quads = static_cast<int>((min(static_cast<long long>(kRowFloats), D - col0) + 3) / 4);
+  float* ps = reinterpret_cast<float*>(split_smem);
+  float sum[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sum[j] = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += chunk_rows) {
+    const int sc = min(chunk_rows, splits - s0);
+    for (int i = threadIdx.x; i < sc * quads; i += kThreads) {
+      const int r = i / quads;
+      const int q = i - r * quads;
+      copy_async<16>(ps + r * kRowFloats + 4 * q, partials + (s0 + r) * pitch + col0 + 4 * q,
+                     true);
+    }
+    copy_wait_all();
+    __syncthreads();
+    if (warp == 0 && live) {
+#pragma unroll 8
+      for (int r = 0; r < sc; ++r) {
+        float p[V];
+        load_floats<V>(ps + r * kRowFloats + lane * V, p);
+#pragma unroll
+        for (int j = 0; j < V; ++j) sum[j] = sum[j] + p[j];
+      }
+    }
+    __syncthreads();  // the chunk is consumed before the next one lands
+  }
+  if (warp == 0 && live) {
+    Vec y;
+    T* e = reinterpret_cast<T*>(&y);
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = Io<T>::from_float(sum[j]);
+    reinterpret_cast<Vec*>(out)[v] = y;
+  }
+}
+
 // ------------------------------------------------------------------ launchers
 
 // What a launch uses (the *_plan entries hand it out as ints): the path of
 // relay_mix_2d (1 stream, 2 slab; 0 for the fused kernel), vector bytes,
-// blocks in the grid, resident blocks an SM, threads a block
+// blocks in the grid, resident blocks an SM, threads a block, and the
+// fused kernel's column tile (vectors)
 struct Plan {
   int path;
   int vec_bytes;
   int grid;
   int blocks_per_sm;
   int threads;
+  int tile;
 };
 
 // a launch's operands
@@ -557,7 +745,11 @@ struct Launch {
   int n;
   long long D;
   cudaStream_t stream;
-  bool launch;  // false: fill the plan only
+  bool launch;          // false: fill the plan only
+  int splits;           // fused_aggregate_2d: origin ranges S
+  void* partials;       // fused_aggregate_2d with S > 1: split_workspace(D, S) bytes
+  void* counters;       // and counters_len zeroed counters, left zeroed
+  long long counters_len;
 };
 
 // resident blocks an SM of one kernel instance, asked once for the process
@@ -692,7 +884,7 @@ cudaError_t run_fused(const Launch& a, Plan* plan) {
   const long long tiles = (a.D / V + kFusedThreads - 1) / kFusedThreads;
   const long long wave = static_cast<long long>(sms) * occ.blocks;
   *plan = {0, V * static_cast<int>(sizeof(T)), static_cast<int>(tiles < wave ? tiles : wave),
-           occ.blocks, kFusedThreads};
+           occ.blocks, kFusedThreads, kFusedThreads};
   if (!a.launch) return cudaSuccess;
   fused_aggregate_kernel<T, V><<<plan->grid, kFusedThreads, 0, a.stream>>>(
       static_cast<const float*>(a.w), static_cast<const T*>(a.delta), static_cast<T*>(a.out),
@@ -700,23 +892,75 @@ cudaError_t run_fused(const Launch& a, Plan* plan) {
   return cudaGetLastError();
 }
 
+// bytes of fused_aggregate_2d's (S, D) f32 partials for S ranges
+long long split_workspace(long long D, int splits) {
+  return splits <= 1 ? 0 : splits * split_pitch(D) * static_cast<long long>(sizeof(float));
+}
+
+// its tile counters: a column tile (as many as one-element vectors make)
+long long split_counters(long long D, int splits) {
+  return splits <= 1 ? 0 : (D + kSplitThreads - 1) / kSplitThreads;
+}
+
+template <typename T, int V>
+cudaError_t run_split(const Launch& a, Plan* plan) {
+  constexpr int VB = V * static_cast<int>(sizeof(T));
+  constexpr int row_bytes = kSplitThreads * V * static_cast<int>(sizeof(float));
+  const long long tiles = (a.D / V + kSplitThreads - 1) / kSplitThreads;
+  const int range = (a.n + a.splits - 1) / a.splits;
+  // the range's vectors, or as many rows of partials as the chunk allows
+  const int smem = std::max(range * kSplitThreads * VB,
+                            static_cast<int>(std::min<long long>(
+                                static_cast<long long>(a.splits) * row_bytes,
+                                std::max(kSplitPartialBytes, row_bytes))));
+  const long long grid = tiles * a.splits;
+  if (range > kSplitMaxRange || smem > kSplitSmemBytes || grid > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = fused_aggregate_split_kernel<T, V>;
+  if (!a.launch) {
+    Occupancy occ = occupancy(kernel, kSplitThreads * kSplitWarps, smem);
+    if (occ.err != cudaSuccess) return occ.err;
+    *plan = {0, VB, static_cast<int>(grid), occ.blocks, kSplitThreads * kSplitWarps,
+             kSplitThreads};
+    return cudaSuccess;
+  }
+  if (a.partials == nullptr || a.counters == nullptr || a.counters_len < tiles) {
+    return cudaErrorInvalidValue;
+  }
+  kernel<<<static_cast<unsigned>(grid), kSplitThreads * kSplitWarps, smem, a.stream>>>(
+      static_cast<const float*>(a.w), static_cast<const T*>(a.delta), static_cast<T*>(a.out),
+      a.n, a.D, a.splits, smem / row_bytes, static_cast<float*>(a.partials),
+      static_cast<unsigned*>(a.counters));
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t fused_at(const Launch& a, Plan* plan) {
+  return a.splits > 1 ? run_split<T, V>(a, plan) : run_fused<T, V>(a, plan);
+}
+
 template <typename T>
 cudaError_t dispatch_fused(const Launch& a, Plan* plan) {
   constexpr int e = sizeof(T);
   switch (vec_bytes(a.delta, a.out, a.D * e, e)) {
     case 16:
-      return run_fused<T, 16 / e>(a, plan);
+      return fused_at<T, 16 / e>(a, plan);
     case 8:
-      return run_fused<T, 8 / e>(a, plan);
+      return fused_at<T, 8 / e>(a, plan);
     case 4:
-      return run_fused<T, 4 / e>(a, plan);
+      return fused_at<T, 4 / e>(a, plan);
     default:
-      return run_fused<T, 1>(a, plan);
+      return fused_at<T, 1>(a, plan);
   }
 }
 
 cudaError_t fused(const Launch& a, int dtype, Plan* plan) {
-  if (a.n <= 0 || a.D <= 0) return cudaErrorInvalidValue;
+  if (a.n <= 0 || a.D <= 0 || a.splits < 1) return cudaErrorInvalidValue;
+  // every range non-empty: (S − 1)·⌈n/S⌉ < n
+  if (static_cast<long long>(a.splits - 1) * ((a.n + a.splits - 1) / a.splits) >= a.n) {
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) return dispatch_fused<float>(a, plan);
   if (dtype == 1) return dispatch_fused<__nv_bfloat16>(a, plan);
   return cudaErrorInvalidValue;
@@ -732,11 +976,37 @@ extern "C" int relay_mix_2d_launch(const void* A, const void* delta, void* out, 
       mix({A, delta, out, n, D, static_cast<cudaStream_t>(stream), true}, dtype, &plan));
 }
 
+// splits: S, the origin ranges (1 for the single chain).  For S > 1:
+// partials, fused_aggregate_2d_workspace(D, splits) bytes of scratch on the
+// launch's stream, 16-byte aligned; counters, counters_len ≥ the count that
+// function reports of 32-bit counters, zero on entry and left zero (no two
+// launches that may run at once may share them).  All unused for S = 1.
 extern "C" int fused_aggregate_2d_launch(const void* c, const void* delta, void* out, int n,
-                                         long long D, int dtype, void* stream) {
+                                         long long D, int dtype, int splits, void* partials,
+                                         void* counters, long long counters_len,
+                                         void* stream) {
   Plan plan;
-  return static_cast<int>(
-      fused({c, delta, out, n, D, static_cast<cudaStream_t>(stream), true}, dtype, &plan));
+  return static_cast<int>(fused({c, delta, out, n, D, static_cast<cudaStream_t>(stream), true,
+                                 splits, partials, counters, counters_len},
+                                dtype, &plan));
+}
+
+// Bytes of partials that fused_aggregate_2d_launch needs for S = splits;
+// *counters = the tile counters it needs.
+extern "C" long long fused_aggregate_2d_workspace(long long D, int splits, long long* counters) {
+  *counters = split_counters(D, splits);
+  return split_workspace(D, splits);
+}
+
+// The id of the CUDA graph capture under way on the stream, 0 if none: the
+// launches of one capture on one stream run in order at every replay.
+extern "C" unsigned long long stream_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &id) != cudaSuccess) {
+    return 0;
+  }
+  return status == cudaStreamCaptureStatusActive ? id : 0;
 }
 
 // Fills plan[0..4] = {path (1 stream, 2 slab), vector bytes, grid blocks,
@@ -744,7 +1014,7 @@ extern "C" int fused_aggregate_2d_launch(const void* c, const void* delta, void*
 // relay_mix_2d_launch would make for these operands; launches nothing.
 extern "C" int relay_mix_2d_plan(const void* delta, void* out, int n, long long D, int dtype,
                                  int* plan) {
-  Plan p{0, 0, 0, 0, 0};
+  Plan p{0, 0, 0, 0, 0, 0};
   const cudaError_t err = mix({nullptr, delta, out, n, D, nullptr, false}, dtype, &p);
   plan[0] = p.path;
   plan[1] = p.vec_bytes;
@@ -754,15 +1024,19 @@ extern "C" int relay_mix_2d_plan(const void* delta, void* out, int n, long long 
   return static_cast<int>(err);
 }
 
-// Fills plan[0..2] = {vector bytes, grid blocks, resident blocks an SM} of the
-// launch that fused_aggregate_2d_launch would make for these operands;
+// Fills plan[0..4] = {vector bytes, grid blocks, resident blocks an SM,
+// threads a block, column vectors a tile} of the launch that
+// fused_aggregate_2d_launch would make for these operands and S = splits;
 // launches nothing.
 extern "C" int fused_aggregate_2d_plan(const void* delta, void* out, int n, long long D,
-                                       int dtype, int* plan) {
-  Plan p{0, 0, 0, 0, 0};
-  const cudaError_t err = fused({nullptr, delta, out, n, D, nullptr, false}, dtype, &p);
+                                       int dtype, int splits, int* plan) {
+  Plan p{0, 0, 0, 0, 0, 0};
+  const cudaError_t err =
+      fused({nullptr, delta, out, n, D, nullptr, false, splits}, dtype, &p);
   plan[0] = p.vec_bytes;
   plan[1] = p.grid;
   plan[2] = p.blocks_per_sm;
+  plan[3] = p.threads;
+  plan[4] = p.tile;
   return static_cast<int>(err);
 }

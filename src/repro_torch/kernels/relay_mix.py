@@ -28,10 +28,22 @@ reports which, with its vectors, grid and threads):
 No tensor cores: TF32 would change the bits.  The fused reduction reads
 n·D elements once: at the main shape what bounds it is first the launch and
 the ramp until enough loads are in flight, then the bytes; at (8, 10⁷) the
-bytes.  Its kernel is one wave of blocks striding over column tiles, c
-staged in shared memory once a block, and a chunk of origins' loads in
-flight before the first FMA (:func:`fused_aggregate_plan`).  The design
-notes sit in ``csrc/relay_mix.cu``.
+bytes.  Its order is :func:`fused_splits`'s, a function of (n, D) alone:
+
+* S = 1 (n ≤ 128 or D ≥ 131,072, every path but the sample sweeps): one
+  ascending chain an element.  One wave of blocks striding over column
+  tiles, c staged in shared memory once a block, and a chunk of origins'
+  loads in flight before the first FMA.
+* S > 1 (many clients at a small D): S ranges of at most 64 origins, each
+  one chain into an f32 partial, the partials added in ascending order.  A
+  block a (column tile, range), its range's rows staged in shared memory by
+  cp.async; the last block of a tile to finish adds the tile's partials.
+  The wrapper allocates the partials (``torch.empty`` on the current
+  stream) and hands over tile counters that are zero and that the kernel
+  leaves zero (:func:`_counters`).
+
+:func:`fused_aggregate_plan` reports the launch.  The design notes sit in
+``csrc/relay_mix.cu``.
 
 Each wrapper checks its operands and then, by the device of Δ:
 
@@ -56,12 +68,38 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ref import fused_splits
 
 # Launches of each CUDA kernel since the last reset_launches(); a CPU call,
 # which runs the plain version, counts nothing.
 LAUNCHES = {"relay_mix_2d": 0, "fused_aggregate_2d": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# The split kernel's tile counters: zeroed once, left zeroed by the kernel
+# (the last block of a tile resets its counter).  Two launches that may run
+# at once never share them: a buffer serves one stream's eager launches (a
+# stream runs its launches in order), or one stream's launches within one
+# CUDA graph capture (they run in order at every replay, and the graph's
+# replays run in order).  A capture's buffer is zeroed inside the graph,
+# once a replay, and held for the process (the graph may replay at any
+# time).
+_COUNTERS_LEN = 4096  # ints a buffer: tiles of 32 one-element vectors, D < 131,072
+_counter_buffers: dict = {}  # (device index, stream, capture id or 0) -> int32 tensor
+
+
+def _counters(device: torch.device, length: int) -> torch.Tensor:
+    """Zeroed tile counters, at least ``length``, for a launch on the
+    current stream of ``device``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream, build.library().stream_capture_id(stream))
+    buf = _counter_buffers.get(key)
+    if buf is None or buf.numel() < length:
+        # on the current stream, so zeroed before the launch reads it
+        buf = torch.zeros(max(length, _COUNTERS_LEN), dtype=torch.int32, device=device)
+        _counter_buffers[key] = buf
+    return buf
 
 
 def reset_launches() -> None:
@@ -96,7 +134,10 @@ def _check(name: str, weights: torch.Tensor, delta: torch.Tensor, *, square: boo
         raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _launch(name: str, weights: torch.Tensor, delta: torch.Tensor, out: torch.Tensor):
+def _launch(name: str, weights: torch.Tensor, delta: torch.Tensor, out: torch.Tensor,
+            *extra):
+    """``{name}_launch`` on the current stream; ``extra`` are the launcher's
+    arguments between the dtype and the stream."""
     n, D = delta.shape
     if out.numel() == 0:
         return out
@@ -104,7 +145,7 @@ def _launch(name: str, weights: torch.Tensor, delta: torch.Tensor, out: torch.Te
     stream = torch.cuda.current_stream(delta.device).cuda_stream
     with torch.cuda.device(delta.device):
         err = fn(weights.data_ptr(), delta.data_ptr(), out.data_ptr(), n, D,
-                 _DTYPE_CODES[delta.dtype], stream)
+                 _DTYPE_CODES[delta.dtype], *extra, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
@@ -142,17 +183,30 @@ def relay_mix_2d(A: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 
 def fused_aggregate_2d(coeffs: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """u = coeffs @ Δ (coeffs = w·τᵀA, shape (n,)) → (D,) in Δ's dtype."""
+    """u = coeffs @ Δ (coeffs = w·τᵀA, shape (n,)) → (D,) in Δ's dtype, in
+    :func:`fused_splits`'s order."""
     _check("fused_aggregate_2d", coeffs, delta, square=False)
     if delta.device.type == "cpu":
         return _ref.fused_aggregate_2d(coeffs.to(delta.dtype), delta)
-    out = torch.empty(delta.shape[1], dtype=delta.dtype, device=delta.device)
-    return _launch("fused_aggregate_2d", coeffs, delta, out)
+    n, D = delta.shape
+    out = torch.empty(D, dtype=delta.dtype, device=delta.device)
+    splits = fused_splits(n, D)
+    if splits == 1:
+        return _launch("fused_aggregate_2d", coeffs, delta, out, 1, None, None, 0)
+    length = ctypes.c_longlong()
+    with torch.cuda.device(delta.device):
+        nbytes = build.library().fused_aggregate_2d_workspace(D, splits, ctypes.byref(length))
+        # on the current stream: a capture takes them from the graph's pool
+        partials = torch.empty(nbytes, dtype=torch.uint8, device=delta.device)
+        counters = _counters(delta.device, length.value)
+    return _launch("fused_aggregate_2d", coeffs, delta, out, splits, partials.data_ptr(),
+                   counters.data_ptr(), counters.numel())
 
 
-def _plan(name: str, delta: torch.Tensor, size: int, *, rows: bool) -> list[int]:
+def _plan(name: str, delta: torch.Tensor, size: int, *extra, rows: bool) -> list[int]:
     """The ``size`` ints that ``{name}_2d_plan`` fills for this Δ and an
-    output from torch's allocator ((n, D) with ``rows``, else (D,))."""
+    output from torch's allocator ((n, D) with ``rows``, else (D,));
+    ``extra`` are its arguments between the dtype and the plan."""
     if delta.device.type != "cuda" or delta.dim() != 2 or delta.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}_plan: Δ must be a 2-D f32 or bf16 CUDA tensor")
     n, D = delta.shape
@@ -160,7 +214,7 @@ def _plan(name: str, delta: torch.Tensor, size: int, *, rows: bool) -> list[int]
     plan = (ctypes.c_int * size)()
     with torch.cuda.device(delta.device):
         err = getattr(build.library(), f"{name}_2d_plan")(
-            delta.data_ptr(), out.data_ptr(), n, D, _DTYPE_CODES[delta.dtype], plan)
+            delta.data_ptr(), out.data_ptr(), n, D, _DTYPE_CODES[delta.dtype], *extra, plan)
     if err != 0:
         raise RuntimeError(f"{name}_plan: CUDA error {err}")
     return list(plan)
@@ -178,7 +232,12 @@ def relay_mix_plan(delta: torch.Tensor) -> dict:
 
 def fused_aggregate_plan(delta: torch.Tensor) -> dict:
     """The launch :func:`fused_aggregate_2d` makes for this CUDA Δ:
-    ``vec_bytes`` (bytes a load), ``grid`` (blocks) and ``blocks_per_sm``
-    (resident blocks an SM).  Launches nothing."""
-    vec_bytes, grid, blocks_per_sm = _plan("fused_aggregate", delta, 3, rows=False)
-    return {"vec_bytes": vec_bytes, "grid": grid, "blocks_per_sm": blocks_per_sm}
+    ``splits`` (S, its origin ranges), ``vec_bytes`` (bytes a load),
+    ``grid`` (blocks: one wave for S = 1, column tiles × S beyond),
+    ``blocks_per_sm`` (resident blocks an SM), ``threads`` (a block) and
+    ``tile`` (column vectors a tile).  Launches nothing."""
+    splits = fused_splits(*delta.shape) if delta.dim() == 2 else 1
+    vec_bytes, grid, blocks_per_sm, threads, tile = _plan("fused_aggregate", delta, 5, splits,
+                                                          rows=False)
+    return {"splits": splits, "vec_bytes": vec_bytes, "grid": grid,
+            "blocks_per_sm": blocks_per_sm, "threads": threads, "tile": tile}

@@ -83,7 +83,12 @@ def test_kernels_match_plain_versions(dev, n, D, dtype, layout):
     plan = k.fused_aggregate_plan(d)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert plan["vec_bytes"] == _vec_bytes(d)
-    assert 1 <= plan["grid"] <= sms * plan["blocks_per_sm"]
+    assert plan["splits"] == k.fused_splits(n, D)
+    if plan["splits"] == 1:  # one wave of blocks striding over the column tiles
+        assert 1 <= plan["grid"] <= sms * plan["blocks_per_sm"]
+    else:  # a block a (column tile, origin range)
+        tiles = math.ceil(D // (plan["vec_bytes"] // d.element_size()) / plan["tile"])
+        assert plan["grid"] == tiles * plan["splits"]
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 8, 10, 13, 17, 64])
@@ -474,6 +479,91 @@ def test_fused_kernel_bitwise_at_segment_shapes(dev, n, dtype):
     assert torch.equal(u, ref.fused_aggregate_2d(c.to(dtype), d))
     assert torch.equal(k.fused_aggregate_2d(c, d), u)
     assert torch.equal(ops.reduce_flat(c, d, backend="segment"), u)
+
+
+# the sample sweeps' n at D = 698 and at mesh_corr_500's width, all with
+# S > 1 origin ranges, in the three layouts (vectors of 16, 8 or 4 bytes,
+# and single elements)
+@pytest.mark.parametrize("layout", ["contiguous", "row_slice", "elem_offset"])
+@pytest.mark.parametrize("n", [256, 1_000, 1_025, 10_000])
+@pytest.mark.parametrize("D", [698, 2_410])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_split_kernel_bitwise_equal_to_plain_version(dev, n, D, dtype, layout):
+    _, c, d = _inputs(n, D, dtype, dev, layout)
+    assert k.fused_splits(n, D) > 1
+    before = k.LAUNCHES["fused_aggregate_2d"]
+    u = k.fused_aggregate_2d(c, d)
+    assert torch.equal(u, ref.fused_aggregate_2d(c.to(dtype), d))
+    assert torch.equal(k.fused_aggregate_2d(c, d), u)
+    assert k.LAUNCHES["fused_aggregate_2d"] == before + 2  # one a call
+
+
+@pytest.mark.parametrize("n", [1_000, 10_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_split_kernel_graph_replay_equals_eager(dev, n, dtype):
+    """A CUDA graph of a call with S > 1 (workspace from the graph's pool,
+    the tile counters zeroed inside the graph at each replay) gives the
+    eager call's bits on each of 3 replays, Δ rewritten in between."""
+    _, c, d = _inputs(n, 698, dtype, dev)
+    d2 = torch.randn(d.shape, device=dev).to(dtype)
+    static = d.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k.fused_aggregate_2d(c, static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = k.fused_aggregate_2d(c, static)
+    for src in (d, d2, d):
+        static.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, k.fused_aggregate_2d(c, src))
+        assert torch.equal(got, ref.fused_aggregate_2d(c.to(dtype), src))
+
+
+def test_fused_split_counters_never_shared(dev):
+    """The split kernel's tile counters: one zeroed buffer a stream for eager
+    calls, reused on that stream and left at zero; the calls of one capture
+    share a buffer of their own, which the graph's replays leave at zero."""
+    _, c, d = _inputs(1_000, 698, torch.float32, dev)
+    want = ref.fused_aggregate_2d(c, d)
+    side = torch.cuda.Stream()
+    bufs = []
+    for stream in (torch.cuda.current_stream(), side, torch.cuda.current_stream()):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            assert torch.equal(k.fused_aggregate_2d(c, d), want)
+            bufs.append(k._counters(d.device, 1))
+    torch.cuda.synchronize()
+    assert bufs[0] is bufs[2] and bufs[0] is not bufs[1]
+    assert not bufs[0].any() and not bufs[1].any()
+    static = d.clone()
+    with torch.cuda.stream(side):
+        k.fused_aggregate_2d(c, static)
+    torch.cuda.synchronize()
+    before = set(map(id, k._counter_buffers.values()))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [k.fused_aggregate_2d(c, static) for _ in range(3)]
+    captured = [b for b in k._counter_buffers.values() if id(b) not in before]
+    assert len(captured) == 1  # one buffer for the capture's three calls
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, want) for g in got) and not captured[0].any()
+
+
+def test_fused_aggregate_plan_reports_splits(dev):
+    """The sample sweeps' top shape takes fused_splits ranges and a block a
+    (column tile, range), not the 3 blocks of the single chain; the main
+    shape keeps the single chain's one wave."""
+    big = k.fused_aggregate_plan(torch.empty(10_000, 698, device=dev))
+    assert (big["splits"], big["vec_bytes"]) == (157, 8)
+    assert big["grid"] == math.ceil(349 / big["tile"]) * 157 > 3
+    main = k.fused_aggregate_plan(torch.empty(10, 272_282, device=dev))
+    assert (main["splits"], main["vec_bytes"], main["threads"], main["tile"]) == (1, 8, 128, 128)
 
 
 def _geometric_edge_relay(n, seed):

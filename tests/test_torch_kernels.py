@@ -54,8 +54,10 @@ def test_relay_mix_2d_matches_pallas(n, D, dtype):
     _assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("n", [1, 7, 10, 64, 128, 130])
-@pytest.mark.parametrize("D", [100, 5000])
+# n = 1,000 and 1,025 at D = 698: the sample sweeps' shapes, summed in
+# fused_splits ranges (16 and 17)
+@pytest.mark.parametrize("n", [1, 7, 10, 64, 128, 130, 1000, 1025])
+@pytest.mark.parametrize("D", [100, 5000, 698])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_aggregate_2d_matches_pallas(n, D, dtype):
     _, c, d = _case(n, D, dtype, 1)
@@ -63,6 +65,78 @@ def test_fused_aggregate_2d_matches_pallas(n, D, dtype):
     got = k.fused_aggregate_2d(torch.from_numpy(c), _to_torch(d))
     assert got.dtype == TORCH[dtype] and got.shape == (D,)
     _assert_close(got, want, dtype)
+
+
+def test_fused_splits_rule():
+    """S depends on (n, D) alone: 1 for every n ≤ 128 and for every D ≥
+    131,072; beyond, every range is non-empty and holds at most FUSED_RANGE
+    origins, and the sample sweeps' shapes split."""
+    import inspect
+
+    from repro_torch.kernels import ref
+
+    assert list(inspect.signature(k.fused_splits).parameters) == ["n", "D"]
+    assert k.fused_splits is ref.fused_splits
+    for D in (1, 698, 2_410, 131_071, 131_072, 272_282, 10_000_000):
+        assert all(k.fused_splits(n, D) == 1 for n in range(1, 129))
+    for n in (129, 1_000, 10_000, 10**6):
+        assert all(k.fused_splits(n, D) == 1 for D in (131_072, 272_282, 10_000_000))
+    for n, D, want in ((1_000, 698, 16), (1_025, 698, 17), (10_000, 698, 157), (256, 698, 4)):
+        assert k.fused_splits(n, D) == want
+    for n in range(129, 20_000, 7):
+        splits = k.fused_splits(n, 698)
+        size = -(-n // splits)
+        assert splits > 1 and size <= ref.FUSED_RANGE and (splits - 1) * size < n
+
+
+def _two_level(c, d, splits):
+    """The fused reduction's order written out: ranges of ⌈n/S⌉ origins, each
+    an addcmul chain from 0, the partials added from 0 in ascending order."""
+    c, d = c.float(), d.float()
+    n = d.shape[0]
+    size = -(-n // splits)
+    parts = []
+    for s in range(splits):
+        part = torch.zeros(d.shape[1])
+        for j in range(s * size, min(n, (s + 1) * size)):
+            part = torch.addcmul(part, c[j], d[j])
+        parts.append(part)
+    total = torch.zeros(d.shape[1])
+    for part in parts:
+        total = total + part
+    return total
+
+
+@pytest.mark.parametrize("n, D", [(129, 5), (256, 698), (1_000, 698), (1_025, 698),
+                                  (3_001, 2_410)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_plain_two_level_order(n, D, dtype):
+    """With S > 1 the plain version equals the two-level loop bit for bit
+    (weights rounded to Δ's dtype, result rounded once)."""
+    from repro_torch.kernels import ref
+
+    _, c, d = _case(n, D, dtype, 2)
+    c_t, d_t = torch.from_numpy(c).to(TORCH[dtype]), _to_torch(d)
+    splits = k.fused_splits(n, D)
+    assert splits > 1
+    got = ref.fused_aggregate_2d(c_t, d_t)
+    assert got.dtype == TORCH[dtype]
+    assert torch.equal(got, _two_level(c_t, d_t, splits).to(TORCH[dtype]))
+    assert torch.equal(k.fused_aggregate_2d(torch.from_numpy(c), d_t), got)
+
+
+@pytest.mark.parametrize("n, D", [(1, 698), (128, 698), (130, 131_072), (1_000, 131_072)])
+def test_fused_plain_single_chain(n, D):
+    """With S = 1 the plain version is one addcmul chain over all n origins."""
+    from repro_torch.kernels import ref
+
+    _, c, d = _case(n, D, "float32", 3)
+    c_t, d_t = torch.from_numpy(c), _to_torch(d)
+    assert k.fused_splits(n, D) == 1
+    want = torch.zeros(D)
+    for j in range(n):
+        want = torch.addcmul(want, c_t[j], d_t[j])
+    assert torch.equal(ref.fused_aggregate_2d(c_t, d_t), want)
 
 
 def test_relay_mix_autograd_matches_jax_custom_vjp():
@@ -142,22 +216,40 @@ def _timing_tool():
 
 def test_timing_tool_kernel_option_and_shapes():
     """The A/B timing tool parses without a GPU: the fused kernel by default
-    at the main shape and (8, 10⁷); the mix at those, mesh_corr_500's width,
-    the two LM widths and n = 32, 64 and 128 at the main width; each shape's
-    bound by the bytes below the ridge and by the FMAs at n = 128."""
+    at the main shape, (8, 10⁷) and the sample sweeps' four shapes; the mix
+    at the first two, mesh_corr_500's width, the two LM widths and n = 32,
+    64 and 128 at the main width; each shape's bound by the bytes below the
+    ridge and by the FMAs at n = 128."""
     tool = _timing_tool()
     assert tool.parse_args([]).kernel == "fused_aggregate_2d"
     args = tool.parse_args(["--kernel", "relay_mix_2d", "--parent", "p", "--repeat", "2"])
     assert (args.kernel, args.parent, args.repeat) == ("relay_mix_2d", "p", 2)
     with pytest.raises(SystemExit):
         tool.parse_args(["--kernel", "relay_mix"])
-    assert tool.SHAPES["fused_aggregate_2d"] == ((10, 272_282), (8, 10_000_000))
+    assert tool.SHAPES["fused_aggregate_2d"] == (
+        (10, 272_282), (8, 10_000_000), (256, 698), (1_000, 698), (1_025, 698), (10_000, 698))
     assert tool.SHAPES["relay_mix_2d"] == (
         (10, 272_282), (8, 10_000_000), (10, 2_410), (10, 1_443_072), (10, 3_804_416),
         (32, 272_282), (64, 272_282), (128, 272_282))
     bounds = [tool.KERNELS["relay_mix_2d"].bound_ms(n, D)[1]
               for n, D in tool.SHAPES["relay_mix_2d"]]
     assert bounds == ["bytes"] * 7 + ["operations"]
+
+
+def test_timing_tool_variants_set_constants_and_the_order_rule():
+    """A variant sets a constexpr of the CUDA source, or a constant of the
+    order rule for that build's calls only (the rule is restored after)."""
+    from repro_torch.kernels import ref
+
+    tool = _timing_tool()
+    text, rule = tool.with_constants("constexpr int kSplitThreads = 32;",
+                                     "kSplitThreads=64,FUSED_RANGE=32")
+    assert (text, rule) == ("constexpr int kSplitThreads = 64;", {"FUSED_RANGE": 32})
+    with pytest.raises(ValueError, match="kNoSuch"):
+        tool.with_constants(text, "kNoSuch=1")
+    assert tool.splits_with(rule, 1_000, 698) == 32
+    assert tool.splits_with({}, 1_000, 698) == k.fused_splits(1_000, 698) == 16
+    assert ref.FUSED_RANGE == 64
 
 
 def test_ops_backend_names():

@@ -12,13 +12,21 @@ Builds, all compiled at once with the port's nvcc flags into
   (for example the parent commit, unpacked with ``git archive`` into a
   gitignored directory);
 * each ``--variant``: this checkout's source with the named
-  ``constexpr int`` constants set to other values (``kSlabUnroll=1``).
+  ``constexpr int`` constants set to other values (``kSlabUnroll=1``); a
+  name of the fused reduction's order rule in ``kernels/ref.py``
+  (``FUSED_RANGE=32``) sets it for that build's calls instead.
+
+The fused kernel is called as its wrapper calls it: S from ``fused_splits``,
+partials of ``fused_aggregate_2d_workspace`` bytes and zeroed tile
+counters, which the kernel leaves zeroed (one of each a build and shape).
+A build whose library lacks that symbol (a parent from before the split
+reduction) is called with the older launcher, which takes neither.
 
 Each build's ``<kernel>_launch`` is timed as ``chip_smoke.py`` times the
 kernels (``device_ms``: a CUDA graph of back-to-back calls, rotating over
 enough Δ copies that every call reads Δ from device memory), f32, at the
 kernel's shapes (:data:`SHAPES`), beside one PyTorch call for the same
-function into the same outputs (``torch.matmul(c, Δ, out=)`` or
+function into the same outputs (``torch.matmul(c[None], Δ, out=)`` or
 ``torch.matmul(A, Δ, out=)``).  The builds run in turns,
 the order reversed every other round, ``R`` rounds; each is also checked
 bitwise against ``change`` (all of them sum in the same order).  One JSON
@@ -46,7 +54,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
 
 SOURCE = os.path.join("src", "repro_torch", "kernels", "csrc", "relay_mix.cu")
 OUT_DIR = os.path.join(ROOT, "build", "compare")
@@ -55,11 +63,13 @@ OUT_DIR = os.path.join(ROOT, "build", "compare")
 # chip_smoke.py's LM ColRel rounds
 LM_WIDTHS = (1_443_072, 3_804_416)
 
-# (n, D) a kernel is timed at: the main path's shape and (8, 10⁷); the mix
-# also at mesh_corr_500's width, the two LM widths, and n = 32, 64 and 128
-# at the main width (the stream path's largest n and the slab path's)
+# (n, D) a kernel is timed at: the main path's shape and (8, 10⁷); the fused
+# reduction also at the sample sweeps' shapes (chip_smoke.SPARSE_SHAPES);
+# the mix also at mesh_corr_500's width, the two LM widths, and n = 32, 64
+# and 128 at the main width (the stream path's largest n and the slab path's)
 SHAPES = {
-    "fused_aggregate_2d": (chip_smoke.MAIN_SHAPE, chip_smoke.LARGE_SHAPE),
+    "fused_aggregate_2d": (chip_smoke.MAIN_SHAPE, chip_smoke.LARGE_SHAPE,
+                           *chip_smoke.SPARSE_SHAPES),
     "relay_mix_2d": (chip_smoke.MAIN_SHAPE, chip_smoke.LARGE_SHAPE, chip_smoke.MESH_SHAPE,
                      *((chip_smoke.N_CLIENTS, D) for D in LM_WIDTHS),
                      *chip_smoke.MIX_WIDE_SHAPES),
@@ -77,7 +87,9 @@ KERNELS = {
     "fused_aggregate_2d": Kernel(
         lambda n, gen: torch.randn(n, generator=gen, device=gen.device) / math.sqrt(n),
         lambda n, D: (D,),
-        lambda c, d, out: torch.matmul(c, d, out=out),
+        # c as a (1, n) matrix: torch.matmul runs a 1-D c this way and, given
+        # out= of shape (D,), resizes it to (1, D) with a warning
+        lambda c, d, out: torch.matmul(c[None], d, out=out[None]),
         lambda n, D: chip_smoke.bound_ms(4 * (n + n * D + D), 2 * n * D)),
     "relay_mix_2d": Kernel(
         lambda n, gen: torch.randn(n, n, generator=gen, device=gen.device) / math.sqrt(n),
@@ -97,13 +109,35 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def with_constants(text: str, assignments: str) -> str:
+# the names of kernels/ref.py's order rule that a variant may set
+RULE_NAMES = ("FUSED_RANGE",)
+
+
+def with_constants(text: str, assignments: str) -> tuple[str, dict[str, int]]:
+    """The source with the assignments' ``constexpr int`` constants set, and
+    the assignments to :data:`RULE_NAMES`."""
+    rule = {}
     for item in assignments.split(","):
         name, value = item.split("=")
+        if name in RULE_NAMES:
+            rule[name] = int(value)
+            continue
         text, count = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{int(value)};", text)
         if count != 1:
             raise ValueError(f"constant {name} found {count} times in {SOURCE}")
-    return text
+    return text, rule
+
+
+def splits_with(rule: dict[str, int], n: int, D: int) -> int:
+    """``ref.fused_splits(n, D)`` with the rule's constants set as given."""
+    saved = {name: getattr(ref, name) for name in rule}
+    try:
+        for name, value in rule.items():
+            setattr(ref, name, value)
+        return ref.fused_splits(n, D)
+    finally:
+        for name, value in saved.items():
+            setattr(ref, name, value)
 
 
 def compile_all(sources: dict[str, str], kernel: str) -> dict[str, ctypes.CDLL]:
@@ -126,24 +160,47 @@ def compile_all(sources: dict[str, str], kernel: str) -> dict[str, ctypes.CDLL]:
         for name, line in chip_smoke.ptxas_usage(log):
             if family in name:
                 print(f"build {label}: {name}: {line}")
-        lib = ctypes.CDLL(os.path.join(OUT_DIR, f"lib{label}.so"))
-        fn = getattr(lib, f"{kernel}_launch")
-        fn.argtypes = build._LAUNCHER_ARGTYPES
-        fn.restype = ctypes.c_int
-        libs[label] = lib
+        libs[label] = ctypes.CDLL(os.path.join(OUT_DIR, f"lib{label}.so"))
     return libs
 
 
-def launcher(lib: ctypes.CDLL, kernel: str):
+def launcher(lib: ctypes.CDLL, kernel: str, rule: dict[str, int]):
+    """(call, splits): ``call(w, Δ, out)`` launches the build's kernel; for
+    the fused kernel it takes S = ``splits(n, D)`` and a workspace, unless
+    the build predates them (then S is 1)."""
+    try:
+        build.bind(lib)
+        split = kernel == "fused_aggregate_2d"
+    except AttributeError:  # a parent without fused_aggregate_2d_workspace
+        fn = getattr(lib, f"{kernel}_launch")
+        fn.argtypes = build.SIGNATURES["relay_mix_2d_launch"][1]
+        fn.restype = ctypes.c_int
+        split = False
     fn = getattr(lib, f"{kernel}_launch")
+    scratch = {}  # (D, S) -> (partials, counters)
+
+    def splits(n, D):
+        return splits_with(rule, n, D) if split else 1
 
     def call(w, d, out):
-        err = fn(w.data_ptr(), d.data_ptr(), out.data_ptr(), d.shape[0], d.shape[1], 0,
+        n, D = d.shape
+        extra = ()
+        if split:
+            S = splits(n, D)
+            if (D, S) not in scratch:
+                length = ctypes.c_longlong()
+                nbytes = lib.fused_aggregate_2d_workspace(D, S, ctypes.byref(length))
+                scratch[D, S] = (
+                    torch.empty(nbytes, dtype=torch.uint8, device=d.device),
+                    torch.zeros(max(1, length.value), dtype=torch.int32, device=d.device))
+            partials, counters = scratch[D, S]
+            extra = (S, partials.data_ptr(), counters.data_ptr(), counters.numel())
+        err = fn(w.data_ptr(), d.data_ptr(), out.data_ptr(), n, D, 0, *extra,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed with CUDA error {err}")
         return out
-    return call
+    return call, splits
 
 
 def main(argv=None) -> int:
@@ -152,15 +209,17 @@ def main(argv=None) -> int:
     spec = KERNELS[args.kernel]
     with open(os.path.join(ROOT, SOURCE)) as f:
         change = f.read()
-    sources = {"change": change}
+    sources, rules = {"change": change}, {"change": {}}
     if args.parent:
         with open(os.path.join(args.parent, SOURCE)) as f:
             sources = {"parent": f.read(), **sources}
+        rules["parent"] = {}
     for item in args.variant:
         label, assignments = item.split(":", 1)
-        sources[label] = with_constants(change, assignments)
-    fns = {label: launcher(lib, args.kernel)
-           for label, lib in compile_all(sources, args.kernel).items()}
+        sources[label], rules[label] = with_constants(change, assignments)
+    fns, splits = {}, {}
+    for label, lib in compile_all(sources, args.kernel).items():
+        fns[label], splits[label] = launcher(lib, args.kernel, rules[label])
     fns["library"] = spec.library
 
     dev = torch.device("cuda")
@@ -184,6 +243,8 @@ def main(argv=None) -> int:
         for label, ts in times.items():
             row[label] = {"best_ms": min(ts), "median_ms": statistics.median(ts),
                           "all_ms": ts, "bitwise_equal_change": same[label]}
+            if label in splits:
+                row[label]["splits"] = splits[label](n, D)
             if (n, D) == chip_smoke.MAIN_SHAPE:
                 row[label]["l2_resident_ms"] = chip_smoke.device_ms(fns[label], arg_sets[:1],
                                                                     reps)
