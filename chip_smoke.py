@@ -118,7 +118,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
             losses; no engine above 2 captures.  Prints rounds/s, compile_s
             and trace_count per engine, the pipelined engine's overlap, the
             kernel check and model_params.
-10. sparse   the bench harness on the cohort-sampling sweeps at their
+10. suite    the port's benchmark orchestrator's rows
+            (``repro_torch.bench``): the relay-kernel rows of
+            ``kernel_bench`` (the reference's ``bench_relay_kernel.py``
+            draws, n = 16) at D = 2^14, 2^17 and 2^21 in bf16 and f32,
+            each kernel held against its plain version at the kernels
+            phase's tolerances and timed beside it, the library call
+            (``torch.matmul(A.to(dt), Δ)``, ``c.to(dt) @ Δ``) and the bound;
+            the OPT-α rows (``opt_alpha_bench``: S_opt ≤ S_init, finite);
+            a dry run of glm4-9b decode_32k on the one-pod mesh and the
+            roofline rows and table over it (collective n/a, no 16 GB
+            figure); the relay-sweep row of the bench phase's
+            relay_sweep_1e7 report.  Gates: both kernels launched by the
+            rows; every check above.
+11. sparse   the bench harness on the cohort-sampling sweeps at their
             registered sizes: sample_sweep_smoke (n = 256), _n1e3 (8 of its
             16 rounds, for time) and _n1e4 (n = 10⁴, about 28 MB of (n, D)
             f32 buffer): a sparse geometric
@@ -132,7 +145,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             equal and within 1e-5 of a float64 index_add_.  Prints rounds/s
             per engine and the loop's round split between cohort sampling,
             the sparse OPT-α solve and the round on the card.
-11. async    AsyncRoundEngine on ResNet-20/GN at full width (n = 10,
+12. async    AsyncRoundEngine on ResNet-20/GN at full width (n = 10,
             D = 272,282) under the Fig. 6 channel with churn, colrel_fused on
             ``hopper_fused`` and on ``hopper``, 20 rounds a run.  Gates: at
             ZeroDelays bitwise equal to run_rounds_loop (params, server
@@ -145,7 +158,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             rounds to the target loss for every engine.  (async_ttac_500
             runs on its own: ``python -m repro_torch.bench.run --scenario
             async_ttac_500``.)
-12. service  the continuous-training service (``repro_torch.launch``) on
+13. service  the continuous-training service (``repro_torch.launch``) on
             ResNet-20/GN at full width (n = 10, D = 272,282) under the Fig. 6
             channel with churn, AdaptiveOptAlpha and server momentum 0.9:
             ``ContinuousTrainer`` on loop, scan and pipelined with
@@ -163,7 +176,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             call.  Each kernel launched once a round on its backend and never
             on the other.  Prints ms a round per engine and ms per publish and
             per ``restore_training_state`` of the ResNet snapshot.
-13. distributed  the distributed round steps (``repro_torch.fl.distributed``)
+14. distributed  the distributed round steps (``repro_torch.fl.distributed``)
             on ResNet-20/GN at full width (n = 10, T = 2, the main phase's
             batch): ``build_round_step`` faithful on ``hopper`` and
             ``einsum``, fused on ``hopper_fused`` and ``einsum``,
@@ -190,7 +203,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
             Each kernel launched once a round on its backend and never
             elsewhere.  Prints ms a round per run and the world size;
             multi-rank exchange is not measured on one card.
-14. lm       the LM model zoo (``repro_torch.models``) and its serving path.
+15. lm       the LM model zoo (``repro_torch.models``) and its serving path.
             glm4-9b at full width and depth (9,399,767,040 f32 parameters,
             drawn on the card) through ``get_model`` and
             ``launch/serve.py::_decode_demo`` at the serving CLI's defaults
@@ -233,6 +246,17 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# the timing and the card's figures, shared with the port's kernel bench:
+# the H100's data-sheet rates (dense, 700 W), its L2, device ms from CUDA
+# events around a CUDA graph of calls, and the bound of a call's work
+from repro_torch.bench.kernel_bench import (  # noqa: E402
+    L2_BYTES,
+    PEAK_BYTES_PER_S,
+    bound_ms,
+    device_ms,
+)
 
 # main path: the README's core loop at the paper's §V model
 N_CLIENTS, LOCAL_STEPS, LOCAL_BATCH, LR, ROUNDS = 10, 2, 32, 0.05, 5
@@ -294,6 +318,15 @@ BENCH_SCENARIOS = ("bench_smoke", "resnet20_cifar", "relay_sweep_1e7")
 BENCH_MODEL_PARAMS = {"resnet20_cifar": 272_282, "relay_sweep_1e7": 10_013_594}
 BENCH_KERNEL = {"hopper": "relay_mix_2d", "hopper_fused": "fused_aggregate_2d"}
 
+# suite phase: the port's benchmark orchestrator (repro_torch.bench.suite)
+# beyond its figures and scenarios: the relay-kernel rows in both dtypes at
+# n = 16 and D = 2^14, 2^17, 2^21 (the reference's bench_relay_kernel.py
+# draws), the OPT-α rows, the roofline rows over one dry run that takes
+# seconds on the host (the lm phase's served model, one token of decode on
+# the one-pod mesh) and the relay-sweep rows over the bench phase's reports
+SUITE_DTYPES = ("bf16", "f32")
+SUITE_DRYRUN = ("glm4-9b", "decode_32k")
+
 # sparse phase: the sample sweeps at their registered sizes, the segment
 # ops' and the einsum check's tolerance, and the rounds of the loop's
 # host/device split
@@ -340,12 +373,6 @@ LM_B, LM_S, LM_DECODE_STEPS = 2, 96, 8
 LM_FL_ARCHS = ("glm4-9b", "mixtral-8x22b")
 LM_FL_CLIENTS, LM_FL_T, LM_FL_BATCH, LM_FL_SEQ, LM_FL_ROUNDS, LM_FL_LR = 10, 2, 8, 64, 4, 0.1
 
-# NVIDIA's H100 SXM data sheet (dense rates, 700 W): device memory
-# rate and the f32 rate outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-L2_BYTES = 50e6
-
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
@@ -371,42 +398,6 @@ def single_chain(c, d):
     for j in range(d.shape[0]):
         out = torch.addcmul(out, c[j], d32[j])
     return out.to(d.dtype)
-
-
-def device_ms(fn, arg_sets, reps: int) -> float:
-    """Device time of one call, from CUDA events around a CUDA graph of
-    ``reps`` back-to-back calls (no host launch gaps), cycling through
-    ``arg_sets``; the best of three replays."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for args in arg_sets:
-            fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(reps):
-            fn(*arg_sets[i % len(arg_sets)])
-    graph.replay()
-    torch.cuda.synchronize()
-    best = math.inf
-    for _ in range(3):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        e1.synchronize()
-        best = min(best, e0.elapsed_time(e1) / reps)
-    del graph
-    torch.cuda.synchronize()
-    return best
-
-
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device() -> str:
@@ -1355,6 +1346,93 @@ def phase_bench() -> dict:
         for kn in totals:
             totals[kn] += launches[kn]
     return totals
+
+
+def phase_suite() -> dict:
+    """The suite's kernel, OPT-α and roofline rows; see the module
+    docstring for the gates.  Returns each kernel's launches over the kernel
+    rows and, per kernel, each row's times, bound and error against the
+    plain version."""
+    from repro_torch.bench import kernel_bench, opt_alpha_bench, roofline, tables
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import relay_mix as k
+    from repro_torch.launch import dryrun
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    k.reset_launches()
+    rows = {(name, tag): us for tag in SUITE_DTYPES
+            for name, us, _ in kernel_bench.run(full=True, dtype=tag)}
+    launches = dict(k.LAUNCHES)
+    if not all(launches.values()):
+        fail(f"suite: a kernel of the rows was never launched: {launches}")
+
+    # each kernel against its plain version on the rows' inputs, then the
+    # fused plain version and the library calls timed on the same copies
+    # (the mix's plain time is the einsum_ref row's)
+    n, out = kernel_bench.N, {"relay_mix_2d": [], "fused_aggregate_2d": []}
+    for tag in SUITE_DTYPES:
+        dt = kernel_bench.DTYPES[tag]
+        rtol = RTOL_BF16 if tag == "bf16" else RTOL_F32
+        itemsize = torch.empty((), dtype=dt).element_size()
+        A, c, deltas = kernel_bench.draw_inputs(kernel_bench.FULL_SIZES, dt, dev)
+        for D, d in deltas:
+            e_mix = check_close(f"suite relay_mix_2d D={D} {tag}", k.relay_mix_2d(A, d),
+                                ref.relay_mix_2d(A.to(dt), d), rtol)
+            e_fused = check_close(f"suite fused_aggregate_2d D={D} {tag}",
+                                  k.fused_aggregate_2d(c, d),
+                                  ref.fused_aggregate_2d(c.to(dt), d), rtol)
+            ds = kernel_bench.delta_copies(d)
+            reps = kernel_bench.graph_reps(d)
+            mix_args, fused_args = [(A, x) for x in ds], [(c, x) for x in ds]
+            timed = {
+                "relay_mix_2d": (
+                    e_mix, "hopper", kernel_bench.mix_bound_ms(n, D, itemsize),
+                    rows[f"relay_kernel/D{D}/einsum_ref", tag] / 1e3,
+                    device_ms(lambda A_, d_: torch.matmul(A_.to(d_.dtype), d_), mix_args,
+                              reps)),
+                "fused_aggregate_2d": (
+                    e_fused, "hopper_fused", kernel_bench.fused_bound_ms(n, D, itemsize),
+                    device_ms(lambda c_, d_: ref.fused_aggregate_2d(c_.to(d_.dtype), d_),
+                              fused_args, reps),
+                    device_ms(lambda c_, d_: c_.to(d_.dtype) @ d_, fused_args, reps)),
+            }
+            for name, (err, row, (b_ms, b_by), plain_ms, lib_ms) in timed.items():
+                t = {"shape": [n, D], "dtype": tag,
+                     "ms": rows[f"relay_kernel/D{D}/{row}", tag] / 1e3,
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": err}
+                out[name].append(t)
+                print(f"suite {name} (n={n}, D={D}, {tag}, {len(ds)} Δ copies; within "
+                      f"atol {ATOL} rtol {rtol:.3g} of the plain version): "
+                      + json.dumps({key: v for key, v in t.items()
+                                    if key not in ("shape", "dtype")}))
+            del ds, mix_args, fused_args
+        del A, c, deltas
+        torch.cuda.empty_cache()
+
+    for name, us, derived in opt_alpha_bench.run():
+        fields = dict(kv.split("=") for kv in derived.split(";"))
+        if not (math.isfinite(us) and 0.0 < float(fields["S_opt"]) <= float(fields["S_init"])):
+            fail(f"suite {name}: {us} µs a sweep, {derived}")
+
+    arch, shape = SUITE_DRYRUN
+    rec = dryrun.run_one(arch, shape, multi_pod=False)
+    if rec["status"] != "ok":
+        fail(f"suite: dry run {arch} {shape}: {rec.get('error')}")
+    lines = roofline.table("pod16x16")
+    md = tables.tables("roofline")
+    print("\n".join(md))
+    if not any(line.startswith(f"roofline/pod16x16/{arch}/{shape},")
+               and "collective=n/a" in line for line in lines):
+        fail(f"suite: no roofline row for the dry run of {arch} {shape}")
+    if any("16 GB" in line for line in lines + md):
+        fail("suite: a roofline row judged against 16 GB")
+    relay = roofline.relay_table()
+    if not any(line.startswith("relay/relay_sweep_1e7,") for line in relay):
+        fail(f"suite: no relay row for the bench phase's relay_sweep_1e7 report: {relay}")
+    print(f"suite: {time.perf_counter() - t0:.1f} s; kernel-row launches {launches}")
+    return {"launches": launches, "rows": out}
 
 
 def _split_rounds(bundle, rounds: int) -> dict:
@@ -2374,7 +2452,6 @@ def phase_lm() -> dict:
 
 def main() -> int:
     phase_device()
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     phase_build()
     kern = phase_kernels()
@@ -2388,6 +2465,8 @@ def main() -> int:
     t_engines = time.perf_counter()
     engine_launches = phase_engines()
     bench_launches = phase_bench()
+    t_suite = time.perf_counter()
+    suite = phase_suite()
     t_sparse = time.perf_counter()
     sparse_launches = phase_sparse()
     t_async = time.perf_counter()
@@ -2400,6 +2479,7 @@ def main() -> int:
     lm = phase_lm()
     print(f"phases: figures {t_channel - t_fig:.1f} s, channel_figures "
           f"{t_claims - t_channel:.1f} s, claims {t_engines - t_claims:.1f} s, "
+          f"suite {t_sparse - t_suite:.1f} s, "
           f"sparse {t_async - t_sparse:.1f} s, async {t_service - t_async:.1f} s, "
           f"service {t_dist - t_service:.1f} s, distributed {t_lm - t_dist:.1f} s, "
           f"lm {time.perf_counter() - t_lm:.1f} s")
@@ -2426,7 +2506,10 @@ def main() -> int:
             # sweeps' engines (cold and warm, the segment reduce), the
             # async engine's and its loops' rounds on the kernel backends,
             # the service phase's trainer rounds and the distributed phase's
-            # steps, sharded engine and mesh_corr_500 kernel check
+            # steps, sharded engine and mesh_corr_500 kernel check; the
+            # suite's kernel rows: the wrapper's calls in both dtypes at three
+            # sizes (each timing graph's warm-up and captured calls; its
+            # replays are not counted)
             "launches_by_path": {
                 "main": launches[name],
                 "figures": fig_launches[name],
@@ -2434,6 +2517,7 @@ def main() -> int:
                 "claims": claims_launches[name],
                 "engines": engine_launches[name],
                 "bench": bench_launches[name],
+                "suite": suite["launches"][name],
                 "sparse": sparse_launches[name],
                 "async": async_launches[name],
                 "service": service_launches[name],
@@ -2464,6 +2548,7 @@ def main() -> int:
             **{key: kern["timing"][name][key] for key in ("sparse", "wide")
                if key in kern["timing"][name]},
             "lm": lm["times"][name],
+            "suite": suite["rows"][name],
         })
     print(f"total {time.perf_counter() - t0:.1f} s after the device check")
     print(json.dumps({"kernels": kernels}))

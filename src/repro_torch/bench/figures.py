@@ -584,6 +584,19 @@ def fig_corr(rounds: int = 30, model: str = "mlp", n: int = 10, seed: int = 0,
     return results
 
 
+def run_figures(figures=ALL_FIGURES, *, rounds: int, model: str = "mlp", engine: str = "loop",
+                device=None, relay_backend: str = "einsum", seed: int = 0) -> None:
+    """Run ``figures`` in order, each printing its rows: the reference's
+    ``benchmarks/run.py`` figure loop (``engine`` applies to the channel
+    figures)."""
+    runs = {"fig2": fig2, "fig3": fig3, "fig4": fig4, "fig5": fig5, "fig6": fig6,
+            "fig_corr": fig_corr}
+    for figure in figures:
+        kw = {"engine": engine} if figure in CHANNEL_FIGURES else {}
+        runs[figure](rounds=rounds, model=model, device=device, relay_backend=relay_backend,
+                     seed=seed, **kw)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--figure", required=True, choices=[*ALL_FIGURES, "all"])
@@ -599,12 +612,9 @@ def main(argv=None) -> None:
     ap.add_argument("--relay-backend", default="einsum",
                     choices=[b for b in RELAY_BACKENDS if b != "segment"])
     args = ap.parse_args(argv)
-    runs = {"fig2": fig2, "fig3": fig3, "fig4": fig4, "fig5": fig5, "fig6": fig6,
-            "fig_corr": fig_corr}
-    for figure in (ALL_FIGURES if args.figure == "all" else [args.figure]):
-        kw = {"engine": args.engine} if figure in CHANNEL_FIGURES else {}
-        runs[figure](rounds=args.rounds, model=args.model, device=args.device,
-                     relay_backend=args.relay_backend, seed=args.seed, **kw)
+    run_figures(ALL_FIGURES if args.figure == "all" else [args.figure], rounds=args.rounds,
+                model=args.model, engine=args.engine, device=args.device,
+                relay_backend=args.relay_backend, seed=args.seed)
 
 
 if __name__ == "__main__":

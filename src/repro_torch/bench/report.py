@@ -59,6 +59,14 @@ def device_info(device: torch.device) -> dict:
     }
 
 
+def device_label(info: dict) -> str:
+    """A ``device`` block as one phrase with no comma: the name, and the
+    power limit where it is known."""
+    if info.get("power_limit_w") is None:
+        return info["name"]
+    return f"{info['name']} at {info['power_limit_w']} W"
+
+
 def make_report(spec: ScenarioSpec, result: dict) -> dict:
     """Assemble the JSON payload from a :func:`run_scenario` result."""
     runs: dict[str, EngineRun] = result["runs"]

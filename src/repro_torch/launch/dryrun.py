@@ -72,6 +72,7 @@ ARTIFACT_DIR = os.path.join(
 DEVICE = "NVIDIA H100 80GB HBM3, 700 W"
 PEAK_FLOPS = 989e12      # bf16 FLOP/s a card, tensor cores, dense
 HBM_BW = 3.35e12         # B/s a card
+HBM_BYTES = 80e9         # device memory a card
 ICI_BW = 900e9           # B/s a card over NVLink 4
 
 # the reference's choice of 2-D sharding, by arch: training when the
