@@ -98,6 +98,7 @@ from repro_torch.fl.engine import (
 from repro_torch.kernels import relay_mix
 from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.obs import NULL_TRACER, Tracer, phase_attribution, write_chrome_trace, write_jsonl
+from repro_torch.obs.summary import BESIDE_HOST
 from repro_torch.optim.sgd import ClientOpt
 from repro_torch.utils import tree_flatten, tree_map, tree_size
 
@@ -132,8 +133,9 @@ class EngineRun:
     kernel_launches: dict | None = None
     # traced-pass artifacts (``trace_dir`` runs only): the Chrome trace on
     # disk and the per-phase attribution summary.  The traced pass is a
-    # *third* run — its fences serialize the pipeline (observer effect), so
-    # the perf numbers above always come from the untraced warm run.
+    # *third* run — the mesh path's traced per-segment syncs serialize its
+    # pipeline, so the perf numbers above always come from the untraced
+    # warm run.
     trace_path: str | None = None
     telemetry: dict | None = None
     # the warm run's per-round loss trajectory (host floats) — consumed by
@@ -156,8 +158,8 @@ def _sync(device: torch.device) -> None:
 
 def _finalize(tracer, device):
     if tracer is not None and tracer.enabled:
-        # the trailing drain belongs to the device phase too
-        with tracer.span("run.finalize", cat="device", track="device"):
+        # the host waits out the trailing drain
+        with tracer.span("run.finalize", cat="wait"):
             _sync(device)
     else:
         _sync(device)
@@ -177,7 +179,7 @@ def _pregenerate_batches(bundle: ScenarioBundle) -> list:
 def _run_once(bundle: ScenarioBundle, engine, batches: list, tracer=None):
     """One full pass over the scenario; returns (wall_s, metrics, params).
     ``tracer`` threads telemetry through every layer of the pass (schedule
-    instants, policy solve spans, engine dispatch/fence spans)."""
+    instants, policy solve spans, engine dispatch and device spans)."""
     spec = bundle.spec
     schedule = bundle.make_schedule()
     policy = bundle.make_policy(tracer=tracer)
@@ -213,8 +215,9 @@ def _run_once(bundle: ScenarioBundle, engine, batches: list, tracer=None):
 def _finish_trace(tracer: Tracer, trace_dir, scenario: str, engine: str):
     """Export a traced pass (Chrome trace + JSONL) and distill its telemetry
     block: per-phase attribution plus counters.  ``attributed_fraction`` is
-    the share of the trace's wall span covered by phase spans — the rest is
-    untraced host glue."""
+    the share of the trace's wall span covered by the host's phase spans —
+    the rest is untraced host glue; the device's execution (``device``)
+    runs beside the host and is not in it."""
     trace_dir = pathlib.Path(trace_dir)
     path = trace_dir / f"TRACE_{scenario}_{engine}.json"
     write_chrome_trace(tracer, path)
@@ -224,7 +227,8 @@ def _finish_trace(tracer: Tracer, trace_dir, scenario: str, engine: str):
     telemetry = {
         "wall_s": wall,
         "phases": phases,
-        "attributed_fraction": sum(phases.values()) / wall if wall > 0 else 0.0,
+        "attributed_fraction": (sum(t for c, t in phases.items() if c not in BESIDE_HOST)
+                                / wall if wall > 0 else 0.0),
         "counters": dict(tracer.counters),
         "events": len(tracer.events),
         "dropped": tracer.dropped,
@@ -301,8 +305,7 @@ def _run_mesh_once(bundle: ScenarioBundle, step: _MeshStep, name: str, batches: 
                         generator, params, server_state, item.batches, p, spec.lr, A)
                 prefetcher.note_inflight(_event_after(dev))
                 if tr.enabled:
-                    with tr.span("mesh.device", cat="device", track="device",
-                                 epoch=seg.epoch_id):
+                    with tr.span("mesh.device", cat="wait", epoch=seg.epoch_id):
                         _sync(dev)
                 losses.append(seg_losses)
         finally:
@@ -325,7 +328,7 @@ def _run_mesh_once(bundle: ScenarioBundle, step: _MeshStep, name: str, batches: 
                         params, server_state, loss = step.round(
                             params, server_state, batch, taus[r], spec.lr, A)
                     # the per-round host sync every loop driver models
-                    with tr.span("mesh.sync", cat="device", track="device"):
+                    with tr.span("mesh.sync", cat="wait"):
                         losses.append(float(loss))
             else:
                 with tr.span("mesh.stage", cat="stage", epoch=seg.epoch_id):
@@ -334,7 +337,7 @@ def _run_mesh_once(bundle: ScenarioBundle, step: _MeshStep, name: str, batches: 
                     params, server_state, seg_losses = step.scan(
                         params, server_state, stacked, torch.stack(taus), spec.lr, A)
                 if tr.enabled:
-                    with tr.span("mesh.device", cat="device", track="device"):
+                    with tr.span("mesh.device", cat="wait"):
                         _sync(dev)
                 losses.append(seg_losses)
     _finalize(tracer, dev)
@@ -387,7 +390,7 @@ def _run_shard_once(bundle: ScenarioBundle, ex, name: str, batches: list, tracer
                     params, server_state, loss = ex(
                         params, server_state, batch, tau, spec.lr, A, active)
                 # the per-round host sync every loop driver models
-                with tr.span("shard.sync", cat="device", track="device"):
+                with tr.span("shard.sync", cat="wait"):
                     losses.append(float(loss))
         losses = torch.tensor(losses)
         dispatches = spec.rounds
@@ -473,9 +476,8 @@ def run_engine(bundle: ScenarioBundle, name: str, batches: list, trace_dir=None)
 
     ``trace_dir`` adds a third, *traced* pass and writes
     ``TRACE_<scenario>_<engine>.json`` (+ ``.jsonl``) there.  The traced
-    pass fences the device per chunk, so its wall time is not the warm
-    measurement — the ``wall_s``/``overlap_fraction`` numbers always come
-    from the untraced warm run."""
+    pass is not the warm measurement — the ``wall_s``/``overlap_fraction``
+    numbers always come from the untraced warm run."""
     spec = bundle.spec
     if spec.step in ("mesh", "shard"):
         return _distributed_engine(bundle, name, batches, trace_dir)

@@ -55,7 +55,8 @@ from repro_torch.channels.schedule import ChannelSegment, ChannelState
 from repro_torch.core import opt_alpha, topology
 from repro_torch.core import relay as relay_lib
 from repro_torch.obs import NULL_TRACER
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.obs.device import device_span, take_anchor
+from repro_torch.utils import resolve_device, tree_flatten, tree_map
 
 
 def project_to_support(
@@ -502,14 +503,15 @@ def _staged_items(
     frame must not pin the prefetcher — see :func:`_worker_loop`).
 
     Telemetry: one ``stage`` span per chunk (batch draws + host stacking)
-    and one ``h2d`` span per chunk (the device transfer), both on the
-    logical ``prefetcher`` track — in threaded mode that is the worker
-    thread's real timeline, in inline mode it is the staging work
-    interleaved on the consumer, either way its own Perfetto row.  The
-    policy's ``solve`` spans fire from inside ``relay_matrix``.
-    ``place`` moves a host chunk to the device: :func:`_to_device` bound to
-    the prefetcher's device and the consumer's stream, or the caller's
-    ``place``.
+    and one ``h2d`` span per chunk (pinning the chunk and enqueueing its
+    transfer), both on the logical ``prefetcher`` track — in threaded mode
+    that is the worker thread's real timeline, in inline mode it is the
+    staging work interleaved on the consumer, either way its own Perfetto
+    row.  The transfer itself is :func:`_to_device`'s ``prefetch.copy``
+    device span.  The policy's ``solve`` spans fire from inside
+    ``relay_matrix``.  ``place`` moves a host chunk to the device:
+    :func:`_to_device` bound to the prefetcher's device, the consumer's
+    stream and the tracer, or the caller's ``place``.
     """
     for seg in schedule.segments(rounds):
         A = policy.relay_matrix(seg.state) if policy is not None else None
@@ -590,6 +592,12 @@ class SegmentPrefetcher:
 
     Iterate to consume; call :meth:`close` (or exhaust the iterator) to shut
     down.  Staging exceptions re-raise on the consumer side in both modes.
+
+    Telemetry on the consumer thread: a ``prefetch.wait`` span (category
+    ``wait``) around each ``get`` from the queue in threaded mode, and in
+    inline mode around each chunk's staging that did not hide behind the
+    device (the same test as ``wait_s``).  The staging spans an inline
+    ``prefetch.wait`` holds (``stage``, ``h2d``, ``solve``) nest in it.
     """
 
     def __init__(
@@ -611,7 +619,10 @@ class SegmentPrefetcher:
         passes ``device="cpu"``.  ``place`` replaces the default transfer
         (each host-stacked chunk copied whole to ``device``) with the
         caller's placement of the chunk — the sharded engine keeps only its
-        rank's clients of each chunk; ``device`` is then unused."""
+        rank's clients of each chunk; ``device`` is then unused.  With
+        tracing on, the default transfer takes an anchor on ``device`` here
+        (:func:`repro_torch.obs.device.take_anchor`), so its copies' device
+        spans are placed whoever drives the prefetcher."""
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         if depth < 1:
@@ -624,7 +635,9 @@ class SegmentPrefetcher:
         if place is None:
             device = resolve_device(device)
             stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
-            place = functools.partial(_to_device, device=device, stream=stream)
+            take_anchor(self._tracer, device)  # places the copies' device spans
+            place = functools.partial(_to_device, device=device, stream=stream,
+                                      tracer=self._tracer)
         self._gen = _staged_items(
             self.stats,
             schedule,
@@ -674,7 +687,8 @@ class SegmentPrefetcher:
             try:
                 while True:
                     t0 = time.perf_counter()
-                    item = self._queue.get()
+                    with self._tracer.span("prefetch.wait", cat="wait"):
+                        item = self._queue.get()
                     dt = time.perf_counter() - t0
                     self.stats.wait_s += dt
                     if self.stats.chunks == 0:
@@ -689,22 +703,27 @@ class SegmentPrefetcher:
                 self.close()
             return
         while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(self._gen)
-            except StopIteration:
-                break
-            dt = time.perf_counter() - t0
-            self.stats.prep_s += dt
-            hidden = self._inflight is not None and not self._inflight.query()
-            if not hidden:
-                self.stats.wait_s += dt
-            if self.stats.chunks == 0:
-                # pipeline fill: the first chunk has nothing to hide behind,
-                # so its prep/wait is excluded from steady_overlap_fraction
-                self.stats.first_prep_s += dt
-                if not hidden:
-                    self.stats.first_wait_s += dt
+            with self._tracer.span("prefetch.wait", cat="wait") as wait:
+                t0 = time.perf_counter()
+                try:
+                    item = next(self._gen)
+                except StopIteration:
+                    wait.discard()
+                    break
+                dt = time.perf_counter() - t0
+                self.stats.prep_s += dt
+                hidden = self._inflight is not None and not self._inflight.query()
+                if hidden:
+                    wait.discard()
+                else:
+                    self.stats.wait_s += dt
+                if self.stats.chunks == 0:
+                    # pipeline fill: the first chunk has nothing to hide
+                    # behind, so its prep/wait is excluded from
+                    # steady_overlap_fraction
+                    self.stats.first_prep_s += dt
+                    if not hidden:
+                        self.stats.first_wait_s += dt
             self.stats.chunks += 1
             yield item
 
@@ -712,8 +731,9 @@ class SegmentPrefetcher:
         """Stop the worker and release the queue (idempotent; no-op in
         inline mode).  Also runs via ``weakref.finalize`` if the prefetcher
         is garbage-collected without an explicit close.  When tracing, the
-        final :class:`PrefetchStats` fold onto the tracer's counters here —
-        once, whichever of close/exhaustion runs first."""
+        final chunk and segment counts of :class:`PrefetchStats` fold onto
+        the tracer's counters here — once, whichever of close/exhaustion
+        runs first (its seconds are read from ``stats`` itself)."""
         if self._finalizer is not None:
             self._finalizer()  # runs _shutdown_worker at most once
             self._thread = None
@@ -722,8 +742,6 @@ class SegmentPrefetcher:
             self._tracer.count("prefetch.chunks", self.stats.chunks)
             self._tracer.count("prefetch.chunks_staged", self.stats.chunks_staged)
             self._tracer.count("prefetch.segments", self.stats.segments)
-            self._tracer.count("prefetch.prep_s", self.stats.prep_s)
-            self._tracer.count("prefetch.wait_s", self.stats.wait_s)
 
 
 def _stack_host(batches: list, pad: int) -> Any:
@@ -744,26 +762,35 @@ def _stack_host(batches: list, pad: int) -> Any:
     return tree_map(leaf, *batches)
 
 
-def _to_device(host: Any, *, device: torch.device, stream=None) -> Any:
+def _to_device(host: Any, *, device: torch.device, stream=None, tracer=NULL_TRACER) -> Any:
     """Move a host pytree of numpy arrays to ``device``, one tensor a leaf of
     the same dtype (an EdgeRelay's int32 indices stay int32).  To a GPU
-    each leaf is copied into pinned memory and from there, with
+    the leaves are copied into pinned memory and from there, with
     ``non_blocking=True``, on ``stream``: a copy from pageable memory would
     wait until the stream's in-flight chunk had finished, and stall staging
     for a full chunk's compute time.  A read-only leaf (the policies freeze
-    theirs) is copied first, since torch does not wrap one."""
+    theirs) is copied first, since torch does not wrap one.
+
+    With ``tracer`` on, the transfers are a ``prefetch.copy`` device span
+    (attr ``bytes``) from events around them on ``stream``, after the
+    pinning, and their bytes add to the ``prefetch.bytes`` counter."""
 
     def host_tensor(x):
         x = np.asarray(x)
         return torch.from_numpy(x if x.flags.writeable else x.copy())
 
+    nbytes = 0
+    if tracer.enabled:
+        nbytes = sum(np.asarray(x).nbytes for x in tree_flatten(host)[0])
+        tracer.count("prefetch.bytes", nbytes)
+    copy = device_span(tracer, "prefetch.copy", device, stream=stream, bytes=nbytes)
     if device.type != "cuda":
-        return tree_map(lambda x: host_tensor(x).to(device), host)
+        with copy:
+            return tree_map(lambda x: host_tensor(x).to(device), host)
     with torch.cuda.stream(stream):
-        return tree_map(
-            lambda x: host_tensor(x).pin_memory().to(device, non_blocking=True),
-            host,
-        )
+        pinned = tree_map(lambda x: host_tensor(x).pin_memory(), host)
+        with copy:
+            return tree_map(lambda x: x.to(device, non_blocking=True), pinned)
 
 
 class StaleOptAlpha:

@@ -71,6 +71,7 @@ each epoch length once, collectives included.
 """
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Any, Callable
 
@@ -82,6 +83,7 @@ from repro_torch.core import relay as relay_lib
 from repro_torch.fl.simulator import FLSimulator
 from repro_torch.kernels import relay_mix as _kernels
 from repro_torch.obs import NULL_TRACER
+from repro_torch.obs.device import device_span, take_anchor
 from repro_torch.sharding import rules as sharding_rules
 from repro_torch.utils import resolve_device, tree_flatten, tree_map
 
@@ -151,6 +153,14 @@ def _concat_metrics(parts: list) -> Any:
     return tree_map(lambda *ms: torch.cat(ms), *parts)
 
 
+# The most chunks a traced pipelined engine keeps queued on the card.  A
+# replay of the paper's ResNet-20 chunk graph behind two queued ones blocks
+# inside ``CUDAGraph.replay`` until the older has run (measured on the H100),
+# so there the bound only moves that wait out of the dispatch span; a smaller
+# graph is held to it, with a chunk still queued at every launch.
+_TRACED_QUEUE = 2
+
+
 def _event_after(device: torch.device) -> torch.cuda.Event | None:
     """An event recorded on the current stream behind the work enqueued so
     far; None on the CPU, where every op has finished when it returns."""
@@ -159,14 +169,6 @@ def _event_after(device: torch.device) -> torch.cuda.Event | None:
     event = torch.cuda.Event()
     event.record()
     return event
-
-
-def _fence(device: torch.device) -> None:
-    """Wait until the device has run everything enqueued so far (a traced
-    run's explicit blocked-on-device span; untraced runs never wait)."""
-    event = _event_after(device)
-    if event is not None:
-        event.synchronize()
 
 
 class _ChunkGraph:
@@ -297,10 +299,11 @@ class EpochScanEngine:
         ``capture=False`` runs every chunk eagerly.
 
         ``tracer`` (a :class:`repro_torch.obs.Tracer`) records per-chunk
-        dispatch spans plus explicit blocked-on-device fences; the fences
-        remove the host/device overlap (observer effect), so they — like
-        every other traced extra — run only when ``tracer.enabled``.  Also
-        settable after construction via the ``tracer`` attribute.
+        dispatch spans and, from timing events around each chunk's enqueue,
+        ``scan.device`` spans of the device's own execution of the chunk
+        (:mod:`repro_torch.obs.device`); nothing waits on the device for
+        them.  Also settable after construction via the ``tracer``
+        attribute.
         """
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
@@ -347,6 +350,7 @@ class EpochScanEngine:
         with every metric stacked over the R rounds.
         """
         A_seg, active_seg = _segment_operands(self.sim, A, active)
+        take_anchor(self.tracer, self.sim.device)
         return self._run_segment(
             params, server_state, batches, taus, lr, A_seg, active_seg
         )
@@ -363,14 +367,10 @@ class EpochScanEngine:
             stop = min(start + C, R)
             inputs = (params, server_state, tree_map(lambda x: x[start:stop], batches),
                       taus[start:stop], A, active)
-            with self.tracer.span("scan.chunk", cat="dispatch", rounds=stop - start):
+            with (self.tracer.span("scan.chunk", cat="dispatch", rounds=stop - start),
+                  device_span(self.tracer, "scan.device", dev, rounds=stop - start)):
                 params, server_state, ms = self._chunks.run(
                     self._chunk_fn, None, inputs, full=stop - start == C, lr=lr)
-            if self.tracer.enabled:
-                # explicit fence: bills the in-flight chunk to the device
-                # phase (untraced runs never block here)
-                with self.tracer.span("scan.device", cat="device", track="device"):
-                    _fence(dev)
             per_round.extend(ms)
         return params, server_state, _stack_metrics(per_round)
 
@@ -405,6 +405,7 @@ class EpochScanEngine:
         """
         dev = self.sim.device
         self._chunks.reset()
+        take_anchor(self.tracer, dev)
         all_metrics = []
         for seg in schedule.segments(rounds):
             A = policy.relay_matrix(seg.state) if policy is not None else None
@@ -484,12 +485,19 @@ class PipelinedScanEngine:
         ``prefetch_depth`` chunks ahead.
 
         ``tracer`` flows to the prefetcher (stage/h2d spans on the
-        ``prefetcher`` track) and adds per-chunk dispatch + device-fence
-        spans on the consumer side.  The fences serialize the pipeline
-        (observer effect): traced runs show *where* time goes, untraced
-        runs measure how fast it is.  Also settable after construction via
-        the ``tracer`` attribute.  ``capture=False`` runs every chunk
-        eagerly."""
+        ``prefetcher`` track, ``prefetch.wait`` on the consumer's, the
+        copies' device spans) and adds per-chunk ``pipelined.chunk``
+        dispatch spans and ``pipelined.device`` spans of the device's own
+        execution of each chunk, from timing events around its enqueue.
+        Nothing waits on the device for them, so a traced run keeps the
+        pipeline's overlap.  A traced engine keeps at most two chunks queued
+        (``_TRACED_QUEUE``): before it enqueues a third it waits for the
+        older in a ``pipelined.wait`` span (category ``wait``), where the
+        ResNet-20 chunk's replay would block inside the launch, so the
+        dispatch span is the launch's host cost; the device keeps the other
+        chunk queued, so no steady rate changes.  Also settable after
+        construction via the ``tracer`` attribute.  ``capture=False`` runs
+        every chunk eagerly."""
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         if prefetch not in ("inline", "thread"):
@@ -567,6 +575,7 @@ class PipelinedScanEngine:
         all_metrics: list = []  # one stacked metrics dict per segment
         seg_parts: list = []  # the current segment's per-round metrics
         seg_id = A_seg = p_seg = active_seg = None
+        queued = collections.deque(maxlen=_TRACED_QUEUE)  # events after the last chunks
         try:
             for item in prefetcher:
                 seg = item.segment
@@ -578,35 +587,25 @@ class PipelinedScanEngine:
                     p_seg = _segment_value(seg.p, dev)
                     if p_seg is None:
                         p_seg = self.sim.p
-                if self.tracer.enabled:
-                    with self.tracer.span(
-                        "pipelined.chunk",
-                        cat="dispatch",
-                        epoch=seg.epoch_id,
-                        rounds=item.n_rounds,
-                    ):
-                        params, server_state, ms = self._chunk(
-                            generator, params, server_state, item.batches,
-                            item.n_rounds, A_seg, p_seg, lr, active_seg,
-                        )
-                else:
+                if (self.tracer.enabled and len(queued) == _TRACED_QUEUE
+                        and not queued[0].query()):
+                    # wait for the older queued chunk here, not inside the
+                    # launch, so that ``pipelined.chunk`` times the launch
+                    with self.tracer.span("pipelined.wait", cat="wait"):
+                        queued[0].synchronize()
+                with (self.tracer.span("pipelined.chunk", cat="dispatch",
+                                       epoch=seg.epoch_id, rounds=item.n_rounds),
+                      device_span(self.tracer, "pipelined.device", dev,
+                                  epoch=seg.epoch_id, rounds=item.n_rounds)):
                     params, server_state, ms = self._chunk(
                         generator, params, server_state, item.batches,
                         item.n_rounds, A_seg, p_seg, lr, active_seg,
                     )
                 self.dispatches += 1
-                prefetcher.note_inflight(_event_after(dev))
-                if self.tracer.enabled:
-                    # explicit fence: serializes the pipeline (observer
-                    # effect), but makes blocked-on-device time a
-                    # first-class phase on its own track
-                    with self.tracer.span(
-                        "pipelined.device",
-                        cat="device",
-                        track="device",
-                        epoch=seg.epoch_id,
-                    ):
-                        _fence(dev)
+                done = _event_after(dev)
+                prefetcher.note_inflight(done)
+                if done is not None:
+                    queued.append(done)
                 seg_parts.extend(ms)
                 if item.last_in_segment:
                     seg_metrics = _stack_metrics(seg_parts)
@@ -675,8 +674,9 @@ class ShardedScanEngine:
         """``step_fn`` is the ``scan_rounds(generator, params, server_state,
         batches, p, lr, A=..., active=...)`` callable from
         ``build_sharded_scan_round_step`` (built on the same ``mesh`` and
-        ``shard`` mode).  ``tracer`` adds per-epoch dispatch + device-fence
-        spans and the prefetcher's stage/h2d spans.  ``device`` is this
+        ``shard`` mode).  ``tracer`` adds per-epoch ``shard.epoch`` dispatch
+        and ``shard.device`` device spans (timing events around the epoch's
+        enqueue) and the prefetcher's spans.  ``device`` is this
         rank's device: the GPU unless the caller passes ``device="cpu"``.
         ``capture=False`` runs every epoch eagerly."""
         if prefetch not in ("serial", "inline", "thread"):
@@ -718,13 +718,15 @@ class ShardedScanEngine:
             specs = sharding_rules.round_batch_specs(host, self.mesh)
             host = tree_map(np.ascontiguousarray,
                             sharding_rules.local_shard(host, specs, self.mesh))
-        return _to_device(host, device=self.device, stream=stream)
+        return _to_device(host, device=self.device, stream=stream, tracer=self.tracer)
 
     def _dispatch(self, generator, params, server_state, batches, seg, lr, A):
         dev = self.device
         A, p, active = (_segment_value(x, dev) for x in (A, seg.p, seg.active))
-        with self.tracer.span("shard.epoch", cat="dispatch", epoch=seg.epoch_id,
-                              rounds=seg.n_rounds):
+        with (self.tracer.span("shard.epoch", cat="dispatch", epoch=seg.epoch_id,
+                               rounds=seg.n_rounds),
+              device_span(self.tracer, "shard.device", dev, epoch=seg.epoch_id,
+                          rounds=seg.n_rounds)):
             out = self._chunks.run(
                 self._epoch_fn, generator, (params, server_state, batches, p, A, active),
                 full=True, lr=lr)
@@ -756,6 +758,7 @@ class ShardedScanEngine:
         self.dispatches = 0
         self.prefetch_stats = None
         self._chunks.reset()
+        take_anchor(self.tracer, dev)
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         place = functools.partial(self._place, stream=stream)
         losses: list = []
@@ -763,11 +766,6 @@ class ShardedScanEngine:
         def finish(seg, out):
             nonlocal generator, params, server_state
             generator, params, server_state, seg_losses = out
-            if self.tracer.enabled:
-                with self.tracer.span(
-                    "shard.device", cat="device", track="device", epoch=seg.epoch_id
-                ):
-                    _fence(dev)
             losses.append(seg_losses)
             if on_segment is not None:
                 on_segment(seg, params, {"loss": seg_losses})
@@ -827,12 +825,15 @@ def run_rounds_loop(
     the JAX package's per-round loop, a host read of the round's loss
     (``float(...)``, a device sync per round).  Factored out so engine
     comparisons share one definition.  ``tracer`` records per-round
-    stage/dispatch/sync spans (the loop already syncs per round, so tracing
-    adds no extra fence here).  ``taus``: a (rounds, n) array whose row i is
-    round i's uplink mask, used instead of drawing from ``generator`` (the
+    ``loop.stage``, ``loop.round`` (dispatch), ``loop.device`` (the
+    device's execution of the round, from timing events around its enqueue)
+    and ``loop.sync`` spans (category ``wait``: the host blocked in the
+    loop's own per-round sync; tracing adds no wait).  ``taus``: a
+    (rounds, n) array whose row i is round i's uplink mask, used instead of drawing from ``generator`` (the
     cross-package tests hand over the JAX package's τ stream this way).
     Returns ``(params, server_state, per_round_metrics, generator)``."""
     tracer = NULL_TRACER if tracer is None else tracer
+    take_anchor(tracer, sim.device)
     all_metrics = []
     for i, state in enumerate(schedule.rounds(rounds)):
         A = policy.relay_matrix(state) if policy is not None else None
@@ -840,7 +841,8 @@ def run_rounds_loop(
         if tracer.enabled:
             with tracer.span("loop.stage", cat="stage", round=state.round):
                 batch = sim._to_device(next_batch())
-            with tracer.span("loop.round", cat="dispatch", round=state.round):
+            with (tracer.span("loop.round", cat="dispatch", round=state.round),
+                  device_span(tracer, "loop.device", sim.device, round=state.round)):
                 params, server_state, m = sim.run_round(
                     generator,
                     params,
@@ -852,9 +854,7 @@ def run_rounds_loop(
                     active=state.active,
                     tau=tau,
                 )
-            with tracer.span(
-                "loop.sync", cat="device", track="device", round=state.round
-            ):
+            with tracer.span("loop.sync", cat="wait", round=state.round):
                 float(m["loss"])  # the per-round loop's host sync
         else:
             batch = sim._to_device(next_batch())

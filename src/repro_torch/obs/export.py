@@ -17,10 +17,14 @@ Two on-disk formats, one in-memory aggregation:
   ``instant`` / final ``counters``), the grep/pandas-friendly stream for
   ad-hoc analysis without a trace viewer.
 * :func:`phase_attribution` — total seconds per span *category* (the
-  solve / stage / h2d / dispatch / device axis).  Only top-level spans of
-  each category count (a span nested under a same-category ancestor would
-  double-bill its interval); instrumentation keeps categories disjoint, so
-  in a serialized traced run the phase totals sum to ≈ wall time.
+  solve / stage / h2d / dispatch / wait / device axis).  Only top-level
+  spans of each category count (a span nested under a same-category
+  ancestor would double-bill its interval), and a ``wait`` span bills only
+  its time outside the staging spans (``solve`` / ``stage`` / ``h2d``, any
+  track) that overlap it: that staging is what the host waited for, and it
+  is billed already.  Instrumentation keeps the host's categories
+  disjoint, so their totals sum to ≈ the host's busy time; ``device`` is
+  the device's own execution, which runs beside the host.
 """
 from __future__ import annotations
 
@@ -166,18 +170,36 @@ def write_jsonl(tracer: Tracer, path) -> pathlib.Path:
     return path
 
 
+# the host work a ``wait`` span waits for: its overlap with them is billed
+# to them, not to the wait
+_STAGING_CATS = ("solve", "stage", "h2d")
+
+
+def _covered(lo, hi, intervals) -> float:
+    """Length of [lo, hi] covered by the union of ``intervals``."""
+    covered, end = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            covered += b - a
+            end = b
+    return covered
+
+
 def phase_attribution(events) -> dict[str, float]:
     """Total seconds per span category, from live :class:`SpanEvent`s.
 
     Nested spans of the *same* category are skipped (their time is already
     inside the ancestor's interval); cross-category nesting bills both — so
     instrumentation keeps the conventional categories disjoint and the
-    totals stay a partition of busy time.
+    totals stay a partition of busy time — except that a ``wait`` span
+    bills only its time outside the staging spans that overlap it.
     """
     # spans record at exit, so an ancestor appears *after* its children in
     # the buffer; collect per-thread intervals first, then prune.
     per_cat: dict[str, float] = {}
     spans = [e for e in events if isinstance(e, SpanEvent)]
+    staging = [(s.t0_ns, s.t1_ns) for s in spans if s.cat in _STAGING_CATS]
     by_thread: dict[int, list[SpanEvent]] = {}
     for s in spans:
         by_thread.setdefault(s.tid, []).append(s)
@@ -193,15 +215,21 @@ def phase_attribution(events) -> dict[str, float]:
                 for o in thread_spans[i + 1 :]
             )
             if not nested_same_cat:
-                per_cat[s.cat] = per_cat.get(s.cat, 0.0) + s.dur_ns / 1e9
+                dur = s.dur_ns
+                if s.cat == "wait":
+                    dur -= _covered(s.t0_ns, s.t1_ns, staging)
+                per_cat[s.cat] = per_cat.get(s.cat, 0.0) + dur / 1e9
     return per_cat
 
 
 def phase_attribution_loaded(spans: list[dict]) -> dict[str, float]:
     """:func:`phase_attribution` over spans loaded back from a trace file
     (:func:`load_trace_file` records): same same-category pruning, with
-    nesting inferred from strict interval containment on one track."""
+    nesting inferred from strict interval containment on one track, and the
+    same billing of ``wait`` spans."""
     per_cat: dict[str, float] = {}
+    staging = [(s["ts_us"], s["ts_us"] + s["dur_us"]) for s in spans
+               if s["cat"] in _STAGING_CATS]
     by_track: dict[str, list[dict]] = {}
     for s in spans:
         by_track.setdefault(s["track"], []).append(s)
@@ -217,7 +245,10 @@ def phase_attribution_loaded(spans: list[dict]) -> dict[str, float]:
                 for o in track_spans
             )
             if not nested_same_cat:
-                per_cat[s["cat"]] = per_cat.get(s["cat"], 0.0) + s["dur_us"] / 1e6
+                dur = s["dur_us"]
+                if s["cat"] == "wait":
+                    dur -= _covered(s["ts_us"], end, staging)
+                per_cat[s["cat"]] = per_cat.get(s["cat"], 0.0) + dur / 1e6
     return per_cat
 
 

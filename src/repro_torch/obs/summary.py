@@ -5,11 +5,13 @@
 Reads either export format (Chrome trace-event JSON or the JSONL stream)
 and prints (1) a per-phase attribution table — how the traced run's wall
 time splits across ``solve`` (OPT-α re-solves), ``stage`` (batch draws +
-host stacking), ``h2d`` (host→device transfer), ``dispatch`` (compiled-call
-enqueue) and ``device`` (blocked-on-device fences) — and (2) the recorded
-counter totals.  The attributed total is printed against the trace's wall
-span: a large gap means untraced host work (Python glue, GC), not a broken
-trace.  A trace file comes from :func:`repro_torch.obs.write_chrome_trace`
+host stacking), ``h2d`` (pinning and enqueueing the host→device transfer),
+``dispatch`` (compiled-call enqueue) and ``wait`` (the host blocked on the
+staging queue or a sync, net of the staging it waited for), with
+``device`` (the device's own execution, which runs beside the host) below
+the total — and (2) the recorded counter totals.  The attributed total is
+printed against the trace's wall span: a large gap means untraced host
+work (Python glue, GC), not a broken trace.  A trace file comes from :func:`repro_torch.obs.write_chrome_trace`
 or :func:`repro_torch.obs.write_jsonl` on a :class:`repro_torch.obs.Tracer`
 handed to an engine.
 """
@@ -21,14 +23,17 @@ import sys
 from repro_torch.obs.export import load_trace_file, phase_attribution_loaded
 
 # canonical phase order for the table; unknown categories append after
-PHASE_ORDER = ("solve", "stage", "h2d", "dispatch", "device")
+PHASE_ORDER = ("solve", "stage", "h2d", "dispatch", "wait", "device")
+# phases beside the host's timeline, shown below its attributed total
+BESIDE_HOST = ("device",)
 
 PHASE_LABEL = {
     "solve": "OPT-α solve",
     "stage": "host staging",
     "h2d": "host→device",
     "dispatch": "dispatch",
-    "device": "blocked on device",
+    "wait": "host waiting",
+    "device": "device execution",
 }
 
 
@@ -49,18 +54,20 @@ def wall_seconds_loaded(loaded: dict) -> float:
 
 
 def format_attribution(phases: dict[str, float], wall_s: float) -> str:
-    """The attribution table as text."""
+    """The attribution table as text: the host's phases and their total,
+    then the phases beside the host (``BESIDE_HOST``)."""
     order = [c for c in PHASE_ORDER if c in phases]
     order += sorted(c for c in phases if c not in PHASE_ORDER)
-    lines = [f"  {'phase':<20} {'time_s':>9} {'share':>7}"]
-    total = 0.0
-    for cat in order:
-        t = phases[cat]
-        total += t
+
+    def row(label, t):
         share = t / wall_s if wall_s > 0 else 0.0
-        lines.append(f"  {PHASE_LABEL.get(cat, cat):<20} {t:>9.4f} {share:>6.1%}")
-    share = total / wall_s if wall_s > 0 else 0.0
-    lines.append(f"  {'attributed total':<20} {total:>9.4f} {share:>6.1%}")
+        return f"  {label:<20} {t:>9.4f} {share:>6.1%}"
+
+    host = [c for c in order if c not in BESIDE_HOST]
+    lines = [f"  {'phase':<20} {'time_s':>9} {'share':>7}"]
+    lines += [row(PHASE_LABEL.get(cat, cat), phases[cat]) for cat in host]
+    lines.append(row("attributed total", sum(phases[cat] for cat in host)))
+    lines += [row(PHASE_LABEL[cat], phases[cat]) for cat in BESIDE_HOST if cat in phases]
     return "\n".join(lines)
 
 

@@ -9,12 +9,22 @@ three kinds of facts into a bounded in-memory buffer:
   depth on that thread, an optional logical *track*, and arbitrary
   key=value attrs.  Categories are the attribution axis (the summary CLI
   groups by them); the conventional set is
-  ``solve`` / ``stage`` / ``h2d`` / ``dispatch`` / ``device``
-  (blocked-on-device).  Tracks are the *timeline* axis: by default a span
-  lands on its recording thread's track, but a logical override (e.g.
-  ``track="prefetcher"`` for staging work, ``track="device"`` for fence
-  spans) groups related spans onto one named Perfetto row regardless of
-  which thread ran them.
+  ``solve`` / ``stage`` / ``h2d`` / ``dispatch`` / ``wait`` (host blocked)
+  / ``device`` (the device's own execution).  Tracks are the *timeline*
+  axis: by default a span lands on its recording thread's track, but a
+  logical override (e.g. ``track="prefetcher"`` for staging work,
+  ``track="device"`` for device spans) groups related spans onto one named
+  Perfetto row regardless of which thread ran them.
+  A *device span*, ``tracer.device_span(name, start, end)``, is a span
+  whose two ends are device events (objects with ``query``,
+  ``synchronize`` and ``elapsed_time``, as ``torch.cuda.Event`` has) rather
+  than host clock readings.  It is placed on the tracer's clock through an
+  *anchor* (:meth:`Tracer.anchor`): an event recorded while its stream was
+  idle, pinned at the midpoint of the clock read just before its record
+  and just after it completed.  The span stays pending until both of its
+  events have completed and becomes an ordinary :class:`SpanEvent`
+  (``clock="device"``) whenever ``events`` or ``spans`` is read, or on
+  :meth:`Tracer.flush`.  ``repro_torch.obs.device`` makes the events.
 * **instants** — ``tracer.instant("segment", cat="schedule", epoch=3)``
   marks a point in time (rendered as a thin arrow in Perfetto); the channel
   schedule uses these for epoch boundaries.
@@ -29,13 +39,14 @@ so a runaway instrumentation site cannot eat the host's memory.
 
 :class:`NullTracer` is the disabled path.  Its ``enabled`` attribute is
 ``False`` and every method is a constant-returning no-op, so instrumented
-hot loops guard extra work (attribute computation, device fences) behind a
+hot loops guard extra work (attribute computation, device events) behind a
 single ``if tracer.enabled:`` check and disabled runs stay bit- and
 perf-identical to uninstrumented code.  The module-level :data:`NULL_TRACER`
 singleton is the default everywhere a ``tracer`` parameter is accepted.
 
 This module is stdlib-only (no torch, no numpy): importing telemetry can
-never drag in an accelerator runtime.
+never drag in an accelerator runtime.  It calls nothing on a device event
+but ``query``, ``synchronize`` and ``elapsed_time``.
 """
 from __future__ import annotations
 
@@ -68,6 +79,9 @@ class SpanEvent:
     depth: int  # nesting depth on the recording thread (0 = top level)
     track: str | None  # logical track override (None ⇒ the thread's track)
     attrs: dict
+    # "host": the tracer's clock read on the host; "device": both ends are
+    # device events placed on the tracer's clock through an anchor
+    clock: str = "host"
 
     @property
     def dur_ns(self) -> int:
@@ -97,6 +111,9 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def discard(self):
+        return None
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -106,7 +123,7 @@ class NullTracer:
 
     Instrumentation sites hold a tracer unconditionally and branch on
     ``tracer.enabled`` only where tracing would add work that changes
-    behavior or cost (device fences, attr computation); plain
+    behavior or cost (device events, attr computation); plain
     ``with tracer.span(...)`` on a NullTracer is itself only three cheap
     calls on shared constants.
     """
@@ -132,7 +149,7 @@ class _Span:
     completed :class:`SpanEvent` on exit (so buffer order is end-time order
     and a crashed span never leaves a half-open event behind)."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_track", "_attrs", "_t0", "_depth")
+    __slots__ = ("_tracer", "_name", "_cat", "_track", "_attrs", "_t0", "_depth", "_keep")
 
     def __init__(self, tracer, name, cat, track, attrs):
         self._tracer = tracer
@@ -140,6 +157,13 @@ class _Span:
         self._cat = cat
         self._track = track
         self._attrs = attrs
+        self._keep = True
+
+    def discard(self):
+        """Leave this span out of the buffer: the work it wrapped turned
+        out not to be what it names (e.g. staging that hid behind the
+        device is no wait).  Its nesting depth unwinds as usual."""
+        self._keep = False
 
     def __enter__(self):
         local = self._tracer._local
@@ -151,6 +175,8 @@ class _Span:
     def __exit__(self, *exc):
         t1 = self._tracer._clock()
         self._tracer._local.depth = self._depth
+        if not self._keep:
+            return False
         self._tracer._record(
             SpanEvent(
                 name=self._name,
@@ -166,14 +192,31 @@ class _Span:
         return False
 
 
+@dataclasses.dataclass(frozen=True)
+class _PendingSpan:
+    """A device span whose events may not have completed yet."""
+
+    name: str
+    cat: str
+    track: str | None
+    attrs: dict
+    tid: int
+    start: Any
+    end: Any
+    anchor: tuple  # (event, its time on the tracer's clock, ns)
+
+
 class Tracer:
     """Collects spans, instants and counters for one run.
 
     ``clock`` defaults to ``time.perf_counter_ns`` (monotonic, ns); tests
     inject a deterministic counter for golden-value assertions.  ``events``
     is the bounded buffer (read it directly or through the exporters in
-    :mod:`repro_torch.obs.export`); ``counters`` the accumulated totals;
-    ``dropped`` how many events the bound rejected.
+    :mod:`repro_torch.obs.export`; reading it turns the device spans whose
+    events have completed into events); ``counters`` the accumulated totals;
+    ``dropped`` how many events the bound rejected (a pending device span
+    holds its place in the bound).  One tracer times one device: device
+    spans are placed through its latest anchor.
     """
 
     enabled = True
@@ -190,7 +233,9 @@ class Tracer:
         self._clock = clock
         self._lock = threading.Lock()
         self._local = threading.local()
-        self.events: list[SpanEvent | InstantEvent] = []
+        self._events: list[SpanEvent | InstantEvent] = []
+        self._pending: list[_PendingSpan] = []
+        self._anchor: tuple | None = None
         self.counters: CounterDict[str, Any] = {}
         self.dropped = 0
         self.thread_names: dict[int, str] = {}
@@ -221,19 +266,81 @@ class Tracer:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + value
 
+    def _full(self, tid: int) -> bool:
+        """Under the lock: name the recording thread (always the current
+        one: spans record on exit from the thread that entered them, device
+        spans when their second event is recorded) and count a drop if the
+        buffer, pending device spans included, is full."""
+        if tid not in self.thread_names:
+            self.thread_names[tid] = threading.current_thread().name
+        if len(self._events) + len(self._pending) >= self.max_events:
+            self.dropped += 1
+            return True
+        return False
+
     def _record(self, event) -> None:
-        tid = event.tid
         with self._lock:
-            if tid not in self.thread_names:
-                # the recorder is always the current thread (spans record on
-                # exit from the thread that entered them)
-                self.thread_names[tid] = threading.current_thread().name
-            if len(self.events) >= self.max_events:
-                self.dropped += 1
-                return
-            self.events.append(event)
+            if not self._full(event.tid):
+                self._events.append(event)
+
+    # --------------------------------------------------------- device spans
+    def now(self) -> int:
+        """The tracer's clock, ns."""
+        return self._clock()
+
+    @property
+    def has_anchor(self) -> bool:
+        return self._anchor is not None
+
+    def anchor(self, event, t_before_ns: int) -> None:
+        """Pin device time to the tracer's clock.  ``event`` was recorded
+        on an idle stream just after the clock read ``t_before_ns``; this
+        waits for it (microseconds on an idle stream) and places it at the
+        midpoint of that reading and the clock's reading once it completed.
+        Device spans recorded from now on are placed relative to it."""
+        event.synchronize()
+        t_after = self._clock()
+        with self._lock:
+            self._anchor = (event, (t_before_ns + t_after) // 2)
+
+    def device_span(self, name: str, start, end, *, cat: str = "device",
+                    track: str | None = "device", **attrs) -> None:
+        """Record a span from ``start`` to ``end``, two device events
+        recorded around enqueued work, so the device's own execution of it.
+        It stays pending until both events have completed (see
+        :meth:`flush`).  Needs an anchor (:meth:`anchor`)."""
+        if self._anchor is None:
+            raise RuntimeError("a device span needs an anchor first (Tracer.anchor)")
+        tid = threading.get_ident()
+        with self._lock:
+            if not self._full(tid):
+                self._pending.append(_PendingSpan(name, cat, track, attrs, tid, start,
+                                                  end, self._anchor))
+
+    def flush(self) -> None:
+        """Turn every pending device span whose two events have completed
+        into a :class:`SpanEvent` (``clock="device"``, depth 0)."""
+        with self._lock:
+            keep = []
+            for p in self._pending:
+                if not (p.start.query() and p.end.query()):
+                    keep.append(p)
+                    continue
+                event, t_ns = p.anchor
+                t0 = t_ns + round(event.elapsed_time(p.start) * 1e6)  # ms → ns
+                t1 = t0 + round(p.start.elapsed_time(p.end) * 1e6)
+                # its place in the bound was taken when it was recorded
+                self._events.append(SpanEvent(
+                    name=p.name, cat=p.cat, t0_ns=t0, t1_ns=t1, tid=p.tid, depth=0,
+                    track=p.track, attrs=p.attrs, clock="device"))
+            self._pending = keep
 
     # ------------------------------------------------------------- inspection
+    @property
+    def events(self) -> list[SpanEvent | InstantEvent]:
+        self.flush()
+        return self._events
+
     @property
     def spans(self) -> list[SpanEvent]:
         return [e for e in self.events if isinstance(e, SpanEvent)]

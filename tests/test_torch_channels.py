@@ -292,6 +292,28 @@ def test_threaded_prefetcher_relays_worker_errors_and_restores_switch_interval()
                    for t in threading.enumerate() if t is not threading.current_thread())
 
 
+@pytest.mark.parametrize("own_place", [True, False])
+def test_prefetcher_anchors_its_own_copies_device_spans(monkeypatch, own_place):
+    """A prefetcher that copies chunks itself takes the tracer's anchor on
+    its device when made, so its ``prefetch.copy`` spans are placed whoever
+    drives it (the bench harness's mesh path calls no engine); one given the
+    caller's ``place`` leaves the anchor to the caller."""
+    from repro_torch.channels import scheduler
+
+    calls = []
+    monkeypatch.setattr(scheduler, "take_anchor", lambda tr, dev: calls.append((tr, dev)))
+    tracer = Tracer()
+    place = None if own_place else (lambda host: host)
+    pre = channels.SegmentPrefetcher(
+        _schedule("static", "torch"), 4, chunk=2,
+        next_batch=lambda: {"c": np.zeros((N, 2), np.float32)},
+        tracer=tracer, device="cpu", place=place)
+    assert calls == ([(tracer, torch.device("cpu"))] if own_place else [])
+    assert sum(item.n_rounds for item in pre) == 4
+    copies = [s for s in tracer.spans if s.name == "prefetch.copy"]
+    assert len(copies) == (2 if own_place else 0)
+
+
 def test_prefetcher_without_a_device_means_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the default device is valid")

@@ -950,3 +950,183 @@ def test_lm_decode_graph_matches_eager_on_card(dev, arch):
                 torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
             eager_tok = want[:, -1].argmax(-1)[:, None]
             graph_tok = got[:, -1].argmax(-1)[:, None]
+
+
+def test_device_span_is_the_devices_work_on_the_tracers_clock(dev):
+    """A device span around ``torch.cuda._sleep``: it starts no earlier than
+    0.2 ms before the host enqueued the sleep and ends no later than 0.2 ms
+    after ``synchronize`` returned, at several lengths, one anchor for all;
+    a span enqueued behind a sleep already in flight starts after it."""
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.device import device_span, take_anchor
+
+    tracer = Tracer()
+    torch.cuda._sleep(1_000)  # load the kernel
+    torch.cuda.synchronize()
+    take_anchor(tracer, dev)
+    for cycles in (100_000, 2_000_000, 50_000_000, 2_000_000):
+        t_enqueue = tracer.now()
+        with device_span(tracer, "sleep", dev, cycles=cycles):
+            torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+        t_done = tracer.now()
+        span = tracer.spans[-1]
+        assert span.clock == "device" and span.attrs == {"cycles": cycles}
+        assert t_enqueue - 200_000 <= span.t0_ns < span.t1_ns <= t_done + 200_000
+    # behind queued work: the span starts when the device reaches it
+    with device_span(tracer, "first", dev):
+        torch.cuda._sleep(20_000_000)
+    with device_span(tracer, "second", dev):
+        torch.cuda._sleep(1_000)
+    torch.cuda.synchronize()
+    first, second = tracer.spans[-2:]
+    assert (first.name, second.name) == ("first", "second")
+    assert second.t0_ns >= first.t1_ns - 1_000 and first.dur_ns > 5e6
+
+
+@pytest.mark.parametrize("engine", ["loop", "scan", "pipelined_inline", "pipelined_thread"])
+def test_traced_captured_engines_time_the_device_on_card(dev, engine):
+    """A traced run on the card, its full chunks captured and replayed, is
+    bitwise the untraced run; each chunk's device span (device-timed) starts
+    no earlier than 0.2 ms before its dispatch span, each copy's before its
+    ``prefetch.h2d``, and the chunks' rounds sum to the run's."""
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.fl.engine import EpochScanEngine, PipelinedScanEngine, run_rounds_loop
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.obs import Tracer
+
+    n, rounds, dim, chunk = 6, 17, 4097, 2
+
+    def loss_fn(params, batch):
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    def run(tracer):
+        rng = np.random.default_rng(42)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy="colrel_fused", local_steps=2,
+                          relay_backend="hopper_fused")
+        params = {"x": torch.ones(dim, device=dev)}
+        kw = dict(schedule=_churn_schedule(n), rounds=rounds, lr=0.1,
+                  policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+                  next_batch=lambda: {"c": rng.standard_normal((n, 2, 4, dim))
+                                      .astype(np.float32)})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        state = sim.init_server_state(params)
+        if engine == "loop":
+            out = run_rounds_loop(sim, gen, params, state, tracer=tracer, **kw)
+        elif engine == "scan":
+            out = EpochScanEngine(sim, chunk=chunk, tracer=tracer).run_schedule(
+                gen, params, state, **kw)
+        else:
+            out = PipelinedScanEngine(sim, chunk=chunk, prefetch=engine.split("_")[1],
+                                      tracer=tracer).run_schedule(gen, params, state, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    base, tracer = run(None), Tracer()
+    traced = run(tracer)
+    assert torch.equal(base[0]["x"], traced[0]["x"]) and torch.equal(base[2]["loss"],
+                                                                    traced[2]["loss"])
+    name = engine.split("_")[0]
+    host = [s for s in tracer.spans if s.name == ("loop.round" if name == "loop"
+                                                  else f"{name}.chunk")]
+    device = [s for s in tracer.spans if s.name == f"{name}.device"]
+    assert len(device) == len(host) and {s.clock for s in device} == {"device"}
+    assert sum(s.attrs.get("rounds", 1) for s in device) == rounds
+    for h, d in zip(host, sorted(device, key=lambda s: s.t0_ns)):
+        assert d.t0_ns >= h.t0_ns - 200_000 and d.t1_ns > d.t0_ns
+    if name == "pipelined":
+        h2d = [s for s in tracer.spans if s.name == "prefetch.h2d"]
+        copies = sorted((s for s in tracer.spans if s.name == "prefetch.copy"),
+                        key=lambda s: s.t0_ns)
+        assert len(copies) == len(h2d) == len(device)
+        for h, c in zip(h2d, copies):
+            assert c.t0_ns >= h.t0_ns - 200_000 and c.attrs["bytes"] > 0
+
+
+def test_traced_mesh_scenario_records_its_copies_on_card(deterministic, tmp_path):
+    """mesh_corr_500 (cut to 50 rounds) with a trace: the pipelined mesh
+    pass calls no engine, so its prefetcher anchors the tracer itself, and
+    each staged segment's copy is a device-timed ``prefetch.copy`` span."""
+    import dataclasses
+    import json
+
+    from repro_torch.bench import harness, scenarios
+
+    spec = dataclasses.replace(scenarios.get_scenario("mesh_corr_500"), rounds=50)
+    result = harness.run_scenario(spec, trace_dir=tmp_path)
+    assert result["bitwise_match"] is True
+    events = json.loads(
+        (tmp_path / "TRACE_mesh_corr_500_pipelined.json").read_text())["traceEvents"]
+    copies = [e for e in events if e.get("name") == "prefetch.copy"]
+    assert {"mesh.fused", "mesh.device"} <= {e.get("name") for e in events}
+    assert len(copies) == result["runs"]["pipelined"].chunks_staged > 0
+    assert all(e["args"]["bytes"] > 0 for e in copies)
+
+
+def test_traced_pipelined_engine_waits_for_room_outside_its_dispatch_spans(dev, monkeypatch):
+    """Chunks of ~60 ms of device work, all replayed from one graph, and a
+    host that stages in microseconds, so the host runs ahead of the card.
+    Traced, the engine keeps at most two chunks queued (``_TRACED_QUEUE``):
+    before each later chunk it waits for the older in a ``pipelined.wait``
+    span, no replay blocks, and each ``pipelined.chunk`` span is a small part
+    of its chunk's device time; the trajectory is bitwise the untraced one."""
+    import time
+
+    import numpy as np
+
+    from repro_torch import channels
+    from repro_torch.core import topology
+    from repro_torch.fl.engine import PipelinedScanEngine
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.obs import Tracer
+
+    n, chunk, rounds, dim = 4, 2, 16, 64
+
+    def loss_fn(params, batch):
+        torch.cuda._sleep(30_000_000)  # >= 15 ms of the card's time a local step
+        diff = params["x"][None, :] - batch["c"]
+        return 0.5 * torch.mean(torch.sum(diff**2, dim=-1))
+
+    replay, in_replay = torch.cuda.CUDAGraph.replay, []
+
+    def timed_replay(graph):
+        t0 = time.perf_counter_ns()
+        replay(graph)
+        in_replay.append(time.perf_counter_ns() - t0)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", timed_replay)
+
+    def run(tracer):
+        rng = np.random.default_rng(0)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy="fedavg_blind", local_steps=2)
+        engine = PipelinedScanEngine(sim, chunk=chunk, tracer=tracer)
+        params = {"x": torch.ones(dim, device=dev)}
+        schedule = channels.StaticChannel(topology.ring(n), np.full(n, 0.9, np.float32))
+        out = engine.run_schedule(
+            torch.Generator(device=dev).manual_seed(1), params, sim.init_server_state(params),
+            schedule=schedule, rounds=rounds, lr=0.1,
+            next_batch=lambda: {"c": rng.standard_normal((n, 2, 4, dim)).astype(np.float32)})
+        torch.cuda.synchronize()
+        assert engine.replays == rounds // chunk
+        blocked = in_replay[:]
+        in_replay.clear()
+        return out, blocked
+
+    (base, _), tracer = run(None), Tracer()
+    traced, traced_blocked = run(tracer)
+    assert torch.equal(base[0]["x"], traced[0]["x"])
+    assert torch.equal(base[2]["loss"], traced[2]["loss"])
+    assert max(traced_blocked) < 5e6
+    waits = [s for s in tracer.spans if s.name == "pipelined.wait"]
+    device = [s for s in tracer.spans if s.name == "pipelined.device"]
+    dispatch = [s for s in tracer.spans if s.name == "pipelined.chunk"]
+    assert len(waits) >= 3 and {s.cat for s in waits} == {"wait"}
+    assert len(dispatch) == len(device) == rounds // chunk
+    shortest = min(s.dur_ns for s in device)
+    assert shortest > 40e6 and max(s.dur_ns for s in dispatch[1:]) < shortest / 4
+    # the card never waits for the host: a chunk is queued at every launch
+    device.sort(key=lambda s: s.t0_ns)
+    assert max(b.t0_ns - a.t1_ns for a, b in zip(device[1:], device[2:])) < 2e6

@@ -190,6 +190,40 @@ def test_tracing_is_a_pure_observer(engine):
         assert "prefetcher" in {s.track for s in tracer.spans if s.track}
 
 
+@pytest.mark.parametrize("engine", ["loop"] + ENGINES)
+def test_traced_run_spans_each_chunk_on_the_device_track(engine):
+    tracer = Tracer()
+    out = _run("colrel_fused", engine, tracer=tracer)
+    name = {"loop": "loop.device", "scan": "scan.device"}.get(engine, "pipelined.device")
+    device = [s for s in tracer.spans if s.track == "device" and s.name == name]
+    # the CPU finishes each op before it returns: the device span is the
+    # host's time over the enqueue, the dispatch span's
+    dispatch = [s for s in tracer.spans
+                if s.name == {"loop": "loop.round"}.get(engine, name.replace("device", "chunk"))]
+    assert len(device) == len(dispatch) > 0 and {s.cat for s in device} == {"device"}
+    for d, h in zip(device, dispatch):
+        assert h.t0_ns <= d.t0_ns <= d.t1_ns <= h.t1_ns
+    if engine == "loop":
+        assert len(device) == ROUNDS
+        assert {s.cat for s in tracer.spans if s.name == "loop.sync"} == {"wait"}
+        return
+    assert sum(s.attrs["rounds"] for s in device) == ROUNDS
+    if engine.startswith("pipelined"):
+        n = out[5].dispatches
+        assert len(device) == n
+        waits = [s for s in tracer.spans if s.name == "prefetch.wait"]
+        # one a dequeued item: in threaded mode the end marker too; inline,
+        # each chunk's staging, none of which hides on the CPU
+        assert len(waits) == n + (engine == "pipelined_thread")
+        assert {s.cat for s in waits} == {"wait"} and {s.track for s in waits} == {None}
+        copies = [s for s in tracer.spans if s.name == "prefetch.copy"]
+        assert len(copies) == n and {s.track for s in copies} == {"device"}
+        nbytes = N * T * B * DIM * 4
+        assert [s.attrs["bytes"] for s in copies] == [s.attrs["rounds"] * nbytes for s in device]
+        assert tracer.counters["prefetch.bytes"] == ROUNDS * nbytes
+        assert not {"prefetch.prep_s", "prefetch.wait_s"} & set(tracer.counters)
+
+
 def test_engine_errors():
     sim = FLSimulator(quad_loss, n_clients=N, strategy="colrel_fused", local_steps=T,
                       device="cpu")
