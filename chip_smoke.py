@@ -25,13 +25,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
             not the single ascending chain; prints each kernel's launch plan
             (the mix's path, the fused kernel's origin ranges S, vector
             bytes, grid, resident blocks an SM, threads a block) at each.
+3b. conv    each convolution kernel (``repro_torch.kernels.conv``: fprop,
+            dgrad, wgrad) at every convolution shape of ResNet-20/GN for
+            10 clients of 64 images: within 1e-5 of the output's largest
+            magnitude of its plain version in f64, bitwise repeatable and the
+            same for a client alone as among 10; then timed beside its bound
+            (f32 FLOPs over 67 TFLOP/s or bytes over 3.35 TB/s), its plain
+            version (the pad, permute and grouped cuDNN convolution the model
+            ran before) and ``F.conv2d`` grouped on ready NCHW views as
+            ``library_ms`` (a yardstick the port never calls); prints each
+            launch plan and the sums over a local step's 21 convolutions.
 4. main     ColRel rounds of ResNet-20/GN at full width (D = 272,282) for
             n = 10 clients through ``FLSimulator``, four times on the same
             τ and batches: colrel on ``hopper`` and on ``einsum``,
             colrel_fused on ``hopper_fused`` and on ``einsum``.  Each kernel
-            must launch exactly once a round on its backend, every loss must
-            be finite, each kernel run must agree with its plain twin after
-            all rounds, and colrel with colrel_fused after one round.
+            must launch exactly once a round on its backend, each run's
+            convolution kernels 21 fprop, 20 dgrad and 21 wgrad a local step,
+            every loss must be finite, each kernel run must agree with its
+            plain twin after all rounds, and colrel with colrel_fused after
+            one round.
 5. figures  the paper's Figs. 2-4 protocol (``repro_torch.bench.figures``)
             at ResNet-20/GN (D = 272,282, n = 10) with the reference's
             T = 8, b = 64, lr 0.1 and 4,000 ``cifar_like`` training images,
@@ -229,7 +241,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
             (D = 1,443,072 and 3,804,416): checked against the plain
             version, timed beside it, the library call and the bound.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Every phase's convolution launches are counted from zero before it: a
+phase that runs ResNet-20/GN (figures, engines, bench, async, service,
+distributed) must launch whole local steps (21 wgrad and 20 dgrad a step,
+21 fprop a step or evaluation, graph replays included), one that does not
+(kernels, channel_figures, claims, sparse, lm) none.
+
+The line before the last is ``{"kernels": [...]}``, the relay kernels' and
+the convolution kernels' launches by path among each entry's numbers; the
+last line is
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor the JAX package.
 """
 from __future__ import annotations
@@ -688,6 +708,110 @@ def profile_round(sim, params, state, batch, lr) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
+# ResNet-20/GN's convolutions: (Cin, Cout, kernel, stride, map side, how
+# many of the model's 21 have the shape), timed for 10 clients of 64 images
+CONV_SHAPES = ((3, 16, 3, 1, 32, 1), (16, 16, 3, 1, 32, 6), (16, 32, 3, 2, 32, 1),
+               (16, 32, 1, 2, 32, 1), (32, 32, 3, 1, 16, 5), (32, 64, 3, 2, 16, 1),
+               (32, 64, 1, 2, 16, 1), (64, 64, 3, 1, 8, 5))
+CONV_CLIENTS, CONV_BATCH = 10, 64
+# a ResNet-20/GN pass: 21 convolutions forward, 20 input gradients (the
+# images need none) and 21 weight gradients a local step
+CONV_PER_STEP = {"conv2d_fprop": 21, "conv2d_dgrad": 20, "conv2d_wgrad": 21}
+
+
+def check_conv_launches(path: str, got: dict, steps: int | None = None) -> None:
+    """A path's convolution launches (``repro_torch.kernels.conv.LAUNCHES``,
+    graph replays included) are whole ResNet-20/GN passes: ``steps`` local
+    steps exactly, or, without ``steps``, some local steps (at least one)
+    and any number of evaluation passes (21 fprop launches each)."""
+    per = CONV_PER_STEP
+    n = got["conv2d_wgrad"] // per["conv2d_wgrad"]
+    evals, rest = divmod(got["conv2d_fprop"] - n * per["conv2d_fprop"], per["conv2d_fprop"])
+    whole = (got["conv2d_wgrad"] == n * per["conv2d_wgrad"]
+             and got["conv2d_dgrad"] == n * per["conv2d_dgrad"] and evals >= 0 and rest == 0)
+    if not (whole and (n > 0 if steps is None else n == steps and evals == 0)):
+        fail(f"{path}: convolution launches {got} are not "
+             f"{steps if steps is not None else 'whole'} local steps of {per}")
+
+
+def phase_conv() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, B = CONV_CLIENTS, CONV_BATCH
+    names = ("conv2d_fprop", "conv2d_dgrad", "conv2d_wgrad")
+    step = {name: dict.fromkeys(("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
+            for name in names}
+    rows = []
+    for cin, cout, k, stride, side, count in CONV_SHAPES:
+        ho = -(-side // stride)
+        x = torch.randn(n, B, side, side, cin, generator=gen, device=dev)
+        w = torch.randn(n, k, k, cin, cout, generator=gen, device=dev) * (2 / (k * k * cin)) ** 0.5
+        dy = torch.randn(n, B, ho, ho, cout, generator=gen, device=dev)
+        (t, bt), (lf, rt) = conv.same_pad(side, k, stride), conv.same_pad(side, k, stride)
+        # the library's operands made ready once: padded NCHW, OIHW
+        xp = F.pad(conv._nchw(x), (lf, rt, t, bt)).contiguous()
+        woihw, dyn = conv._oihw(w).contiguous(), conv._nchw(dy).contiguous()
+        flops = 2 * n * B * ho * ho * cout * k * k * cin
+        # each tensor once, and of x only the pixels a convolution reads (a
+        # stride-2 1×1 reads one in four); dgrad writes all of dx
+        read_x = n * B * min(side, ho * min(k, stride)) ** 2 * cin
+        nbytes = {"conv2d_fprop": read_x + w.numel() + dy.numel(),
+                  "conv2d_dgrad": x.numel() + w.numel() + dy.numel(),
+                  "conv2d_wgrad": read_x + w.numel() + dy.numel()}
+        cases = {
+            "conv2d_fprop": (conv.conv2d_fprop, (x, w, stride), conv.conv2d_fprop_ref,
+                             lambda: F.conv2d(xp, woihw, stride=stride, groups=n)),
+            "conv2d_dgrad": (conv.conv2d_dgrad, (dy, w, side, side, stride),
+                             conv.conv2d_dgrad_ref,
+                             lambda: torch.nn.grad.conv2d_input(xp.shape, woihw, dyn,
+                                                                stride=stride, groups=n)),
+            "conv2d_wgrad": (conv.conv2d_wgrad, (dy, x, k, k, stride), conv.conv2d_wgrad_ref,
+                             lambda: torch.nn.grad.conv2d_weight(xp, woihw.shape, dyn,
+                                                                 stride=stride, groups=n)),
+        }
+        for name, (fn, args, ref_fn, lib) in cases.items():
+            if name == "conv2d_dgrad" and cin % 8:
+                continue  # the stem: the images need no gradient
+            got = fn(*args)
+            if not torch.equal(got, fn(*args)):
+                fail(f"{name} {cin}->{cout} k{k} s{stride}: two calls differ")
+            one = fn(*(a[2:3] if isinstance(a, torch.Tensor) else a for a in args))
+            if not torch.equal(one, got[2:3]):
+                fail(f"{name} {cin}->{cout} k{k} s{stride}: client 2 alone differs")
+            want = ref_fn(*(a.double() if isinstance(a, torch.Tensor) else a for a in args))
+            err = float((got.double() - want).abs().max())
+            scale = float(want.abs().max())
+            if not err <= 1e-5 * scale:
+                fail(f"{name} {cin}->{cout} k{k} s{stride}: max |err| {err:.3e} over "
+                     f"1e-5 × {scale:.3e}")
+            ms = device_ms(fn, [args], 20)
+            plain = device_ms(ref_fn, [args], 20)
+            library = device_ms(lambda: lib(), [()], 20)
+            b_ms, b_by = bound_ms(4 * nbytes[name], flops)
+            plan = conv.conv2d_plan(name.split("_")[1], x.shape, w.shape, stride)
+            row = {"name": name, "shape": [cin, cout, k, stride, side], "count": count,
+                   "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain,
+                   "library_ms": library, "max_abs_err": err, "scale": scale, "plan": plan}
+            rows.append(row)
+            for key in step[name]:
+                step[name][key] += count * row[key]
+            print(f"conv {name} {cin}->{cout} k{k} s{stride} {side}x{side} (x{count}): "
+                  f"{ms:.6f} ms, bound {b_ms:.6f} ({b_by}, {100 * b_ms / ms:.1f}% of it), "
+                  f"plain {plain:.6f}, library {library:.6f}, err {err:.2e} of {scale:.2e}, "
+                  f"plan {plan}")
+        del x, w, dy, xp, woihw, dyn
+    for name, t in step.items():
+        print(f"conv {name} a local step (21 convolutions, 20 dgrads): " + json.dumps(
+            {key: round(v, 6) for key, v in t.items()}) +
+            f", {100 * t['bound_ms'] / t['ms']:.1f}% of the f32 rate")
+    torch.cuda.empty_cache()
+    return {"rows": rows, "step": step}
+
+
 def phase_main() -> dict:
     import numpy as np
 
@@ -697,6 +821,7 @@ def phase_main() -> dict:
     from repro_torch.data.partition import iid_partition
     from repro_torch.data.synthetic import cifar_like
     from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.kernels import conv
     from repro_torch.kernels import relay_mix as k
     from repro_torch.models.resnet import init_resnet20, resnet20_loss
     from repro_torch.utils import tree_flatten, tree_size
@@ -726,6 +851,7 @@ def phase_main() -> dict:
         batches = [loader.round_batch(LOCAL_STEPS, LOCAL_BATCH) for _ in range(ROUNDS)]
         losses, taus, round_ms = [], [], []
         k.reset_launches()
+        conv.reset_launches()
         for r in range(ROUNDS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -737,20 +863,23 @@ def phase_main() -> dict:
             if r == 0:
                 leaves_r1 = [x.clone() for x in tree_flatten(params)[0]]
         launches = dict(k.LAUNCHES)
+        conv_launches = dict(conv.LAUNCHES)
         tag = f"{strategy}/{backend}"
         print(f"main {tag}: round ms {[round(x, 3) for x in round_ms]} "
-              f"losses {losses} launches {launches}")
+              f"losses {losses} launches {launches} {conv_launches}")
         if not all(math.isfinite(x) for x in losses):
             fail(f"{tag}: non-finite loss {losses}")
         want = {"relay_mix_2d": ROUNDS if backend == "hopper" else 0,
                 "fused_aggregate_2d": ROUNDS if backend == "hopper_fused" else 0}
         if launches != want:
             fail(f"{tag}: kernel launches {launches}, expected {want}")
+        check_conv_launches(f"main {tag}", conv_launches, steps=ROUNDS * LOCAL_STEPS)
         leaves = tree_flatten(params)[0]
         if not all(bool(torch.isfinite(x).all()) for x in leaves):
             fail(f"{tag}: non-finite parameters")
         runs[tag] = {"losses": losses, "taus": taus, "leaves": leaves,
-                     "leaves_r1": leaves_r1, "round_ms": round_ms, "launches": launches}
+                     "leaves_r1": leaves_r1, "round_ms": round_ms, "launches": launches,
+                     "conv_launches": conv_launches}
         if tag == "colrel_fused/hopper_fused":
             profile_round(sim, params, state, batches[0], LR)
 
@@ -2454,29 +2583,48 @@ def main() -> int:
     phase_device()
     t0 = time.perf_counter()
     phase_build()
-    kern = phase_kernels()
+    from repro_torch.kernels import conv as conv_kernels
+
+    conv_paths: dict = {}  # each path's convolution launches, from zero before it
+
+    def counted(path: str, phase, *, resnet: bool | None):
+        """``phase()``; its convolution launches are whole ResNet-20/GN
+        local steps (``resnet``), none (False) or reported only (None)."""
+        conv_kernels.reset_launches()
+        out = phase()
+        conv_paths[path] = got = dict(conv_kernels.LAUNCHES)
+        if resnet:
+            check_conv_launches(path, got)
+        elif resnet is False and any(got.values()):
+            fail(f"{path}: runs no ResNet, yet launched convolutions {got}")
+        return out
+
+    kern = counted("kernels", phase_kernels, resnet=False)
+    conv = counted("conv", phase_conv, resnet=None)
     runs = phase_main()
+    conv_paths["main"] = {name: sum(r["conv_launches"][name] for r in runs.values())
+                          for name in CONV_PER_STEP}
     t_fig = time.perf_counter()
-    fig_launches = phase_figures()
+    fig_launches = counted("figures", phase_figures, resnet=True)
     t_channel = time.perf_counter()
-    channel_launches = phase_channel_figures()
+    channel_launches = counted("channel_figures", phase_channel_figures, resnet=False)
     t_claims = time.perf_counter()
-    claims_launches = phase_claims()
+    claims_launches = counted("claims", phase_claims, resnet=False)
     t_engines = time.perf_counter()
-    engine_launches = phase_engines()
-    bench_launches = phase_bench()
+    engine_launches = counted("engines", phase_engines, resnet=True)
+    bench_launches = counted("bench", phase_bench, resnet=True)
     t_suite = time.perf_counter()
-    suite = phase_suite()
+    suite = counted("suite", phase_suite, resnet=None)
     t_sparse = time.perf_counter()
-    sparse_launches = phase_sparse()
+    sparse_launches = counted("sparse", phase_sparse, resnet=False)
     t_async = time.perf_counter()
-    async_launches = phase_async()
+    async_launches = counted("async", phase_async, resnet=True)
     t_service = time.perf_counter()
-    service_launches = phase_service()
+    service_launches = counted("service", phase_service, resnet=True)
     t_dist = time.perf_counter()
-    dist_launches = phase_distributed()
+    dist_launches = counted("distributed", phase_distributed, resnet=True)
     t_lm = time.perf_counter()
-    lm = phase_lm()
+    lm = counted("lm", phase_lm, resnet=False)
     print(f"phases: figures {t_channel - t_fig:.1f} s, channel_figures "
           f"{t_claims - t_channel:.1f} s, claims {t_engines - t_claims:.1f} s, "
           f"suite {t_sparse - t_suite:.1f} s, "
@@ -2549,6 +2697,25 @@ def main() -> int:
                if key in kern["timing"][name]},
             "lm": lm["times"][name],
             "suite": suite["rows"][name],
+        })
+    # the convolutions: each kernel's launches by path (the main phase's
+    # four runs of 5 rounds × 2 local steps, gated exactly; each other
+    # ResNet-20/GN path gated to whole local steps, its evaluations adding
+    # fprop launches; the conv phase's checked and timed calls) and its
+    # timing over a local step's shapes
+    conv_source = "src/repro_torch/kernels/csrc/conv2d_nhwc.cu"
+    for name in CONV_PER_STEP:
+        kernels.append({
+            "name": name, "route": "cuda", "source": conv_source,
+            "replaces": "none: the JAX package leaves its convolutions to XLA",
+            "launches": conv_paths["main"][name],
+            "launches_by_path": {path: got[name] for path, got in conv_paths.items()},
+            "tolerance": {"f32": {"of_scale": 1e-5}},
+            "max_abs_err": max(r["max_abs_err"] for r in conv["rows"] if r["name"] == name),
+            "shape": [CONV_CLIENTS, CONV_BATCH],
+            **{key: conv["step"][name][key] for key in ("ms", "bound_ms", "plain_ms",
+                                                        "library_ms")},
+            "per_shape": [r for r in conv["rows"] if r["name"] == name],
         })
     print(f"total {time.perf_counter() - t0:.1f} s after the device check")
     print(json.dumps({"kernels": kernels}))

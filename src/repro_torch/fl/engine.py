@@ -78,10 +78,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import kernels as _kernels
 from repro_torch.channels.scheduler import SegmentPrefetcher, _stack_host, _to_device
 from repro_torch.core import relay as relay_lib
 from repro_torch.fl.simulator import FLSimulator
-from repro_torch.kernels import relay_mix as _kernels
 from repro_torch.obs import NULL_TRACER
 from repro_torch.obs.device import device_span, take_anchor
 from repro_torch.sharding import rules as sharding_rules
@@ -191,16 +191,16 @@ class _ChunkGraph:
     too, so the caller's generator is left as it was, and a call hands it
     the caller's state and hands the advanced state back.  A full chunk
     always makes the same draws, so each replay advances the state as the
-    eager chunk does.  The relay kernels launched during the capture count
-    once a replay (:func:`repro_torch.kernels.relay_mix.count_launches`);
-    the warm-up and the capture count nothing.
+    eager chunk does.  The hand-written kernels launched during the capture
+    count once a replay (:func:`repro_torch.kernels.count_launches`); the
+    warm-up and the capture count nothing.
 
     Capture runs in ``thread_local`` error mode, so the threaded
     prefetcher's pinned copies on another thread may go on meanwhile.  A
     capture that fails raises."""
 
     def __init__(self, fn, inputs: tuple, *, generator: torch.Generator | None = None):
-        saved = dict(_kernels.LAUNCHES)
+        saved = _kernels.launches()
         self.static = tree_map(torch.clone, inputs)
         self._gen = None
         if generator is not None:
@@ -214,11 +214,12 @@ class _ChunkGraph:
         self.graph = torch.cuda.CUDAGraph()
         if self._gen is not None:
             self.graph.register_generator_state(self._gen)
-        before = dict(_kernels.LAUNCHES)
+        before = _kernels.launches()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = fn(self._gen, *self.static)
-        self.launches = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
-        _kernels.LAUNCHES.update(saved)
+        after = _kernels.launches()
+        self.launches = {k: n - before.get(k, 0) for k, n in after.items()}
+        _kernels.count_launches({k: saved.get(k, 0) - n for k, n in after.items()})
 
     def __call__(self, generator, *inputs):
         tree_map(lambda dst, src: dst.copy_(src), self.static, inputs)

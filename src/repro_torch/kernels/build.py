@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("relay_mix.cu",)
+SOURCES = ("relay_mix.cu", "conv2d_nhwc.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +43,16 @@ NVCC_FLAGS = (
 #   int fused_aggregate_2d_plan(const void* delta, void* out, int n,
 #                               long long D, int dtype, int splits,
 #                               int* plan)                       // plan[5]
+# the C entry points of csrc/conv2d_nhwc.cu (shape: 13 ints, kernels/conv.py):
+#   int conv2d_fprop_launch(const void* x, const void* w, void* y,
+#                           const int* shape, void* stream)
+#   int conv2d_dgrad_launch(const void* dy, const void* w, void* dx,
+#                           const int* shape, void* stream)
+#   int conv2d_wgrad_launch(const void* x, const void* dy, void* dw,
+#                           void* partials, const int* shape, int slab,
+#                           int splits, void* stream)
+#   int conv2d_plan(int direction, const int* shape, int splits,
+#                   int* plan)                                   // plan[5]
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "relay_mix_2d_launch": (_I, [_P, _P, _P, _I, _LL, _I, _P]),
@@ -51,6 +61,10 @@ SIGNATURES = {
     "stream_capture_id": (ctypes.c_ulonglong, [_P]),
     "relay_mix_2d_plan": (_I, [_P, _P, _I, _LL, _I, ctypes.POINTER(_I)]),
     "fused_aggregate_2d_plan": (_I, [_P, _P, _I, _LL, _I, _I, ctypes.POINTER(_I)]),
+    "conv2d_fprop_launch": (_I, [_P, _P, _P, ctypes.POINTER(_I), _P]),
+    "conv2d_dgrad_launch": (_I, [_P, _P, _P, ctypes.POINTER(_I), _P]),
+    "conv2d_wgrad_launch": (_I, [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _P]),
+    "conv2d_plan": (_I, [_I, ctypes.POINTER(_I), _I, ctypes.POINTER(_I)]),
 }
 
 
@@ -69,7 +83,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found: the relay kernels are built from csrc/ with the "
+            "nvcc not found: the kernels are built from csrc/ with the "
             "CUDA toolkit on the machine that has the GPU"
         )
     return found

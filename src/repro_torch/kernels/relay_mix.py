@@ -66,13 +66,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_counter
+from repro_torch.kernels import count_launches  # noqa: F401 (relay_mix.count_launches)
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import reset_launches as _reset_launches
 from repro_torch.kernels.ref import fused_splits
 
 # Launches of each CUDA kernel since the last reset_launches(); a CPU call,
-# which runs the plain version, counts nothing.
-LAUNCHES = {"relay_mix_2d": 0, "fused_aggregate_2d": 0}
+# which runs the plain version, counts nothing.  A graph's replays are
+# counted by count_launches (:mod:`repro_torch.kernels`).
+LAUNCHES = launch_counter("relay_mix_2d", "fused_aggregate_2d")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,16 +106,7 @@ def _counters(device: torch.device, length: int) -> torch.Tensor:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def count_launches(counts: dict) -> None:
-    """Add ``counts`` to :data:`LAUNCHES`: a CUDA graph's replay launches
-    the kernels its capture recorded without running their wrappers, so the
-    code that replays it counts them here, once a replay."""
-    for name, n in counts.items():
-        LAUNCHES[name] += n
+    _reset_launches(LAUNCHES)
 
 
 def _check(name: str, weights: torch.Tensor, delta: torch.Tensor, *, square: bool):

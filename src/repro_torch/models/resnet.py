@@ -4,9 +4,12 @@ Faithful 3-stage (16/32/64 channels, 3 basic blocks each) CIFAR ResNet with
 GroupNorm(8) in place of BatchNorm, as in the JAX package, so the model stays
 a pure function of its parameter dict.
 
-Layouts follow the JAX package at the public functions: conv weights are
-HWIO and images NHWC.  The forward permutes to torch's NCHW/OIHW inside.
-Two details keep the numbers equal to the reference:
+Layouts follow the JAX package: conv weights are HWIO and activations NHWC
+from the images to the pooling, with no permute and no pad copy.  Every
+convolution is :func:`repro_torch.kernels.conv.conv2d` (the clients of a
+vmapped local update reach it as its client dimension; an unbatched call is
+one client), hand-written CUDA on the card.  Two details keep the numbers
+equal to the reference:
 
 * ``"SAME"`` padding is computed as XLA computes it.  A stride-2 3×3 conv on
   an even input pads (0, 1): nothing before, one after.  ``F.conv2d``'s
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.conv import conv2d
 from repro_torch.utils import resolve_device, tree_map
 
 
@@ -28,20 +32,10 @@ def _conv_init(gen, kh, kw, cin, cout, dtype):
     return w.to(dtype)
 
 
-def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
 def _conv(w, x, stride=1):
-    """x (B, C, H, W), w HWIO → (B, Cout, H', W') with XLA's SAME padding."""
-    kh, kw = w.shape[0], w.shape[1]
-    top, bottom = _same_pad(x.shape[2], kh, stride)
-    left, right = _same_pad(x.shape[3], kw, stride)
-    if top or bottom or left or right:
-        x = F.pad(x, (left, right, top, bottom))
-    return F.conv2d(x, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
+    """x (B, H, W, C) NHWC, w HWIO → (B, H', W', Cout) with XLA's SAME
+    padding, as one client of :func:`conv2d`."""
+    return conv2d(x.unsqueeze(0), w.to(x.dtype).unsqueeze(0), stride).squeeze(0)
 
 
 def _init_gn(c, dtype):
@@ -49,14 +43,20 @@ def _init_gn(c, dtype):
 
 
 def _gn(p, x, groups=8, eps=1e-5):
-    B, C, H, W = x.shape
+    """GroupNorm of x (B, H, W, C) over (H, W, C / g) of each group, as
+    (x - mean) · (rsqrt(var + eps) · scale) + bias.  The affine is applied
+    per sample (scale and bias expanded over the batch), so its gradients
+    sum each sample's pixels first: a sum over all B·H·W pixels into C
+    outputs, NHWC's channels innermost, is slow on the card."""
+    B, H, W, C = x.shape
     g = min(groups, C)
-    xf = x.float().reshape(B, g, C // g, H, W)
-    mu = xf.mean(dim=(2, 3, 4), keepdim=True)
-    var = xf.var(dim=(2, 3, 4), keepdim=True, correction=0)
-    xf = ((xf - mu) * torch.rsqrt(var + eps)).reshape(B, C, H, W)
-    out = xf * p["scale"][:, None, None] + p["bias"][:, None, None]
-    return out.to(x.dtype)
+    xf = x.float().reshape(B, H * W, g, C // g)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    var = xf.var(dim=(1, 3), keepdim=True, correction=0)
+    scale = p["scale"].reshape(1, 1, g, C // g).expand(B, 1, g, C // g)
+    bias = p["bias"].reshape(1, 1, g, C // g).expand(B, 1, g, C // g)
+    out = torch.addcmul(bias, xf - mu, torch.rsqrt(var + eps) * scale)
+    return out.reshape(B, H, W, C).to(x.dtype)
 
 
 def _init_block(gen, cin, cout, dtype):
@@ -101,13 +101,13 @@ def init_resnet20(seed: int, cfg: ModelConfig, num_classes: int = 10, *, device=
 
 def resnet20_logits(params, cfg: ModelConfig, images):
     """images (B, 32, 32, 3) NHWC -> logits (B, 10)."""
-    x = images.to(cfg.cdtype).permute(0, 3, 1, 2)
+    x = images.to(cfg.cdtype)
     x = F.relu(_gn(params["gn0"], _conv(params["stem"], x)))
     for s in range(3):
         for b in range(3):
             stride = 2 if (s > 0 and b == 0) else 1
             x = _block(params[f"s{s}b{b}"], x, stride)
-    x = x.mean(dim=(2, 3))
+    x = x.mean(dim=(1, 2))
     return x @ params["fc"]["w"].to(cfg.cdtype) + params["fc"]["b"].to(cfg.cdtype)
 
 

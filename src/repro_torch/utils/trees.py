@@ -24,43 +24,47 @@ _LEAF = ("leaf",)
 _NONE = ("none",)
 
 
+def _walk(node, leaves: list):
+    # module-level, not a closure: a recursive nested function refers to
+    # itself through its cell, and the cycle would keep every leaf (a staged
+    # chunk's batches, say) alive until the cyclic collector ran
+    if node is None:
+        return _NONE
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys, tuple(_walk(node[k], leaves) for k in keys))
+    if isinstance(node, tuple) and hasattr(type(node), "_fields"):
+        return ("namedtuple", type(node), tuple(_walk(x, leaves) for x in node))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return (kind, tuple(_walk(x, leaves) for x in node))
+    leaves.append(node)
+    return _LEAF
+
+
 def tree_flatten(tree) -> tuple[list, tuple]:
     """(leaves, treedef), dict keys sorted at every level."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return _NONE
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, tuple) and hasattr(type(node), "_fields"):
-            return ("namedtuple", type(node), tuple(walk(x) for x in node))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return (kind, tuple(walk(x) for x in node))
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(td, it):
+    # module-level for the same reason as _walk
+    if td == _LEAF:
+        return next(it)
+    if td == _NONE:
+        return None
+    if td[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(td[1], td[2])}
+    if td[0] == "namedtuple":
+        return td[1](*(_build(c, it) for c in td[2]))
+    children = [_build(c, it) for c in td[1]]
+    return children if td[0] == "list" else tuple(children)
 
 
 def tree_unflatten(treedef: tuple, leaves) -> Any:
     it = iter(leaves)
-
-    def build(td):
-        if td == _LEAF:
-            return next(it)
-        if td == _NONE:
-            return None
-        if td[0] == "dict":
-            return {k: build(c) for k, c in zip(td[1], td[2])}
-        if td[0] == "namedtuple":
-            return td[1](*(build(c) for c in td[2]))
-        children = [build(c) for c in td[1]]
-        return children if td[0] == "list" else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out

@@ -1130,3 +1130,202 @@ def test_traced_pipelined_engine_waits_for_room_outside_its_dispatch_spans(dev, 
     # the card never waits for the host: a chunk is queued at every launch
     device.sort(key=lambda s: s.t0_ns)
     assert max(b.t0_ns - a.t1_ns for a, b in zip(device[1:], device[2:])) < 2e6
+
+
+# -- ResNet-20/GN's convolutions (kernels/conv.py) ----------------------------
+
+# every convolution of ResNet-20/GN: (Cin, Cout, kernel, stride, map side)
+RESNET_CONVS = [(3, 16, 3, 1, 32), (16, 16, 3, 1, 32), (16, 32, 3, 2, 32), (16, 32, 1, 2, 32),
+                (32, 32, 3, 1, 16), (32, 64, 3, 2, 16), (32, 64, 1, 2, 16), (64, 64, 3, 1, 8)]
+
+
+def _conv_inputs(dev, n, B, cin, cout, ksize, stride, side):
+    gen = torch.Generator(device=dev).manual_seed(cin * 1009 + cout * 31 + ksize * 7 + stride)
+    out = -(-side // stride)
+    x = torch.randn(n, B, side, side, cin, generator=gen, device=dev)
+    w = torch.randn(n, ksize, ksize, cin, cout, generator=gen, device=dev)
+    dy = torch.randn(n, B, out, out, cout, generator=gen, device=dev)
+    return x, w * (2.0 / (ksize * ksize * cin)) ** 0.5, dy
+
+
+def _conv_all(x, w, dy, stride, *, ref=False):
+    """fprop, dgrad (None for the stem: the images need no gradient) and
+    wgrad, through the kernels or the plain versions."""
+    from repro_torch.kernels import conv
+
+    side, ksize = x.shape[2], w.shape[1]
+    f, d, g = ((conv.conv2d_fprop_ref, conv.conv2d_dgrad_ref, conv.conv2d_wgrad_ref) if ref
+               else (conv.conv2d_fprop, conv.conv2d_dgrad, conv.conv2d_wgrad))
+    return (f(x, w, stride), None if x.shape[-1] % 8 else d(dy, w, side, side, stride),
+            g(dy, x, ksize, ksize, stride))
+
+
+@pytest.mark.parametrize("cin,cout,ksize,stride,side", RESNET_CONVS)
+def test_conv_kernels_match_plain_versions(dev, cin, cout, ksize, stride, side):
+    """Each kernel at the cell's shapes (10 clients of 64 images) against its
+    plain version in f64.  The kernels sum up to 576 (fprop, dgrad) or
+    65,536 (wgrad) f32 products in their own order, so each output is held
+    within 1e-5 of the largest magnitude of its tensor: the f32 sums' error
+    is a few ulps of that scale, TF32 products miss it about 100-fold."""
+    from repro_torch.kernels import conv
+
+    x, w, dy = _conv_inputs(dev, 10, 64, cin, cout, ksize, stride, side)
+    conv.reset_launches()
+    got = _conv_all(x, w, dy, stride)
+    torch.cuda.synchronize()
+    assert conv.LAUNCHES == {"conv2d_fprop": 1, "conv2d_dgrad": int(cin % 8 == 0),
+                             "conv2d_wgrad": 1}
+    want = _conv_all(x.double(), w.double(), dy.double(), stride, ref=True)
+    for g, ref_ in zip(got, want):
+        if ref_ is not None:
+            assert g.dtype == torch.float32 and g.shape == ref_.shape
+            torch.testing.assert_close(g.double(), ref_, atol=1e-5 * float(ref_.abs().max()),
+                                       rtol=0)
+
+
+@pytest.mark.parametrize("cin,cout,ksize,stride,side", RESNET_CONVS)
+def test_conv_kernels_bitwise_deterministic_and_client_independent(dev, cin, cout, ksize,
+                                                                   stride, side):
+    """Two calls are bitwise equal, and a client's output and gradients are
+    bitwise the same alone, among 10, and in a block of 4 (a sharded
+    rank's): no tile or split depends on the client count."""
+    x, w, dy = _conv_inputs(dev, 10, 64, cin, cout, ksize, stride, side)
+    first = _conv_all(x, w, dy, stride)
+    again = _conv_all(x, w, dy, stride)
+    alone = _conv_all(x[3:4], w[3:4], dy[3:4], stride)
+    block = _conv_all(x[4:8], w[4:8], dy[4:8], stride)
+    for a, b, one, four in zip(first, again, alone, block):
+        if a is not None:
+            assert torch.equal(a, b)
+            assert torch.equal(a[3:4], one)
+            assert torch.equal(a[4:8], four)
+
+
+def test_conv_graph_replay_equals_eager(dev):
+    """The three kernels captured in a CUDA graph (wgrad's partials from the
+    graph's pool): a replay on fresh inputs equals the eager calls bitwise,
+    and the capture records one launch of each."""
+    from repro_torch.kernels import conv
+
+    x, w, dy = _conv_inputs(dev, 10, 64, 16, 32, 3, 2, 32)
+    eager = _conv_all(x, w, dy, 2)
+    static = [torch.zeros_like(t) for t in (x, w, dy)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _conv_all(*static, 2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    conv.reset_launches()
+    with torch.cuda.graph(graph):
+        out = _conv_all(*static, 2)
+    assert conv.LAUNCHES == {"conv2d_fprop": 1, "conv2d_dgrad": 1, "conv2d_wgrad": 1}
+    for dst, src in zip(static, (x, w, dy)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
+
+
+def test_conv_refuses_what_the_kernels_do_not_take(dev):
+    from repro_torch.kernels import conv
+
+    x, w, _ = _conv_inputs(dev, 2, 2, 16, 16, 3, 1, 8)
+    with pytest.raises(TypeError, match="float32"):
+        conv.conv2d_fprop(x.double(), w.double(), 1)
+    with pytest.raises(ValueError, match="output channels"):
+        conv.conv2d_fprop(x, torch.zeros(2, 3, 3, 16, 24, device=dev), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.conv2d_fprop(x.transpose(2, 3), w, 1)
+
+
+def test_resnet_grads_through_the_kernels_match_the_cpu(dev):
+    """vmap(grad_and_value(ResNet-20/GN's loss)) on the card, through the
+    kernels and their vmap rules, against the same on the CPU (the plain
+    versions): the losses within 1e-5 and the gradients within 1e-4, the
+    tolerance the JAX package's gradients get on the CPU."""
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.kernels import conv
+    from repro_torch.models import resnet
+    from repro_torch.utils import tree_flatten, tree_map
+
+    n, b = 3, 4
+    params = resnet.init_resnet20(0, CONFIG, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    batch = {"images": torch.randn(n, b, 32, 32, 3, generator=gen),
+             "labels": torch.randint(0, 10, (n, b), generator=gen)}
+    stacked = tree_map(lambda p: p.unsqueeze(0).expand(n, *p.shape).contiguous(), params)
+    fn = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, mb: resnet.resnet20_loss(p, CONFIG, mb)))
+    conv.reset_launches()
+    g_dev, l_dev = fn(tree_map(lambda t: t.to(dev), stacked),
+                      tree_map(lambda t: t.to(dev), batch))
+    torch.cuda.synchronize()
+    # 21 convolutions forward, 21 weight gradients, 20 input gradients
+    assert conv.LAUNCHES == {"conv2d_fprop": 21, "conv2d_dgrad": 20, "conv2d_wgrad": 21}
+    g_cpu, l_cpu = fn(stacked, batch)
+    torch.testing.assert_close(l_dev.cpu(), l_cpu, atol=1e-5, rtol=1e-5)
+    for a, c in zip(tree_flatten(g_dev)[0], tree_flatten(g_cpu)[0]):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-4, rtol=0)
+
+
+def test_captured_resnet_chunk_runs_the_conv_kernels_and_no_cudnn(dev):
+    """ResNet-20/GN rounds through the pipelined engine, full chunks replayed
+    as CUDA graphs, against the loop: bitwise equal params and losses; every
+    round's convolutions counted on the kernels, replays included; and the
+    profiler sees the new kernels and no cuDNN convolution kernel (the
+    final linear layer's cuBLAS GEMMs stay)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import channels
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.fl.engine import PipelinedScanEngine, run_rounds_loop
+    from repro_torch.fl.simulator import FLSimulator
+    from repro_torch.kernels import conv
+    from repro_torch.models import resnet
+
+    n, b, steps, rounds, chunk = 4, 8, 2, 4, 2
+
+    def loss_fn(params, batch):
+        return resnet.resnet20_loss(params, CONFIG, batch)
+
+    def run(name):
+        rng = np.random.default_rng(11)
+        sim = FLSimulator(loss_fn, n_clients=n, strategy="colrel_fused", local_steps=steps,
+                          relay_backend="hopper_fused")
+        params = resnet.init_resnet20(0, CONFIG, device=dev)
+        kw = dict(schedule=_churn_schedule(n), rounds=rounds, lr=0.1,
+                  policy=channels.AdaptiveOptAlpha(sweeps=20, warm_sweeps=8),
+                  next_batch=lambda: {
+                      "images": rng.standard_normal((n, steps, b, 32, 32, 3)).astype(np.float32),
+                      "labels": rng.integers(0, 10, (n, steps, b)).astype(np.int32)})
+        gen = torch.Generator(device=dev).manual_seed(7)
+        conv.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if name == "loop":
+                out = run_rounds_loop(sim, gen, params, sim.init_server_state(params), **kw)
+                eng = None
+            else:
+                eng = PipelinedScanEngine(sim, chunk=chunk, prefetch="inline")
+                out = eng.run_schedule(gen, params, sim.init_server_state(params), **kw)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()}
+        return out, dict(conv.LAUNCHES), eng, names
+
+    (lp, _, lm, _), loop_launches, _, _ = run("loop")
+    (ep, _, em, _), launches, eng, names = run("pipelined")
+    per_round = {"conv2d_fprop": 21 * steps, "conv2d_dgrad": 20 * steps,
+                 "conv2d_wgrad": 21 * steps}
+    want = {key: rounds * v for key, v in per_round.items()}
+    assert loop_launches == launches == want
+    assert eng.replays >= 1
+    for key in lp:
+        assert all(torch.equal(a, c) for a, c in zip(
+            torch.utils._pytree.tree_leaves(ep[key]), torch.utils._pytree.tree_leaves(lp[key])))
+    assert torch.equal(em["loss"], lm["loss"])
+    assert any("conv_gemm_kernel" in name for name in names)
+    assert any("conv_wgrad_kernel" in name for name in names)
+    banned = ("cudnn", "convolve", "genericTranspose", "winograd", "fprop", "dgrad_")
+    assert not [name for name in names if any(b_ in name for b_ in banned)]

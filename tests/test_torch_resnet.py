@@ -11,6 +11,7 @@ from repro.configs.resnet20_cifar import CONFIG as JAX_CONFIG
 from repro.models import resnet as jax_resnet
 from repro.optim.sgd import ClientOpt as JaxClientOpt
 from repro_torch.configs.resnet20_cifar import CONFIG
+from repro_torch.kernels.conv import same_pad
 from repro_torch.models import resnet
 from repro_torch.optim.sgd import ClientOpt
 from repro_torch.utils import from_jax_params, tree_flatten, tree_size
@@ -71,14 +72,14 @@ def test_stride2_same_padding_regression():
     x = rng.standard_normal((2, 32, 32, 16)).astype(np.float32)
     w = rng.standard_normal((3, 3, 16, 32)).astype(np.float32)
     want = np.asarray(jax_resnet._conv(jnp.asarray(w), jnp.asarray(x), stride=2))
-    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
-    got = resnet._conv(torch.from_numpy(w), xt, stride=2).permute(0, 2, 3, 1)
+    got = resnet._conv(torch.from_numpy(w), torch.from_numpy(x), stride=2)  # NHWC in and out
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
     symmetric = F.conv2d(xt, torch.from_numpy(w).permute(3, 2, 0, 1), stride=2, padding=1)
     assert np.abs(symmetric.permute(0, 2, 3, 1).numpy() - want).max() > 1.0
-    assert resnet._same_pad(32, 3, 2) == (0, 1)
-    assert resnet._same_pad(32, 3, 1) == (1, 1)
-    assert resnet._same_pad(32, 1, 2) == (0, 0)
+    assert same_pad(32, 3, 2) == (0, 1)
+    assert same_pad(32, 3, 1) == (1, 1)
+    assert same_pad(32, 1, 2) == (0, 0)
 
 
 def test_groupnorm_uses_population_variance():
@@ -87,8 +88,7 @@ def test_groupnorm_uses_population_variance():
     p = {"scale": rng.standard_normal(16).astype(np.float32),
          "bias": rng.standard_normal(16).astype(np.float32)}
     want = np.asarray(jax_resnet._gn(jax.tree.map(jnp.asarray, p), jnp.asarray(x)))
-    got = resnet._gn({k: torch.from_numpy(v) for k, v in p.items()},
-                     torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    got = resnet._gn({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 

@@ -169,3 +169,28 @@ def test_tree_dot_and_norm_match_raveled():
     assert tree_dot(a, b).dtype == torch.float32
     np.testing.assert_allclose(float(tree_dot(a, b)), float(fa @ fb), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(float(tree_norm(a)), float(fa.norm()), rtol=1e-6)
+
+
+def test_flatten_and_map_leave_no_reference_cycle():
+    """A leaf that went through tree_flatten / tree_map dies with its last
+    reference, without the cyclic collector (a recursive closure would keep
+    it, and a staged chunk's batches with it, until the next collection)."""
+    import gc
+    import weakref
+
+    from repro_torch.utils import tree_map
+
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.ones(3)
+        ref = weakref.ref(t)
+        tree = {"b": [t, (t,)], "a": None}
+        leaves, treedef = tree_flatten(tree)
+        assert leaves == [t, t] and tree_unflatten(treedef, leaves)["b"][0] is t
+        doubled = tree_map(lambda x: x, tree)
+        del t, tree, leaves, doubled
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()

@@ -1,7 +1,8 @@
 """Check a benchmark cell's span window against the card's own timeline.
 
     python3 tools/span_window_check.py --workload resnet20.fig3_static \
-        --seed N --seconds 30 [--spans build/spans_N.jsonl]
+        --seed N --seconds 30 [--spans build/spans_N.jsonl] \
+        [--prefetch inline] [--switch-interval S]
 
 Runs the cell as ``portbench/run.py --trace 1`` does (set-up, then a third
 of the seconds each under the port's tracer, untraced, and under
@@ -23,9 +24,16 @@ of the seconds each under the port's tracer, untraced, and under
   (untraced first in even pairs), give the cost free of that order
   (``paired``);
 * ``replay_ms_per_round``: host ms a round inside ``CUDAGraph.replay`` in
-  the span window, and ``backpressure_ms_per_round``: in the engine's
-  ``pipelined.wait`` spans, where a traced engine waits out a replay that
-  would block.
+  the span window, ``replay_cpu_ms_per_round`` the main thread's CPU time
+  in it (a launch that waits for room on the card spins; a thread that
+  waits to take the GIL back after the launch sleeps), and
+  ``backpressure_ms_per_round``: in the engine's ``pipelined.wait`` spans,
+  where a traced engine waits out a replay that would block.
+
+``--prefetch inline`` stages on the main thread instead of the engine's
+staging thread, and ``--switch-interval`` sets ``sys.setswitchinterval``
+(how long a thread may keep the GIL while another waits for it): two ways
+to see what the staging thread's Python work costs the dispatch spans.
 
 ``--spans`` writes the span window's spans, one JSON object a line.  Needs
 an NVIDIA GPU; imports neither JAX nor the JAX package.
@@ -58,6 +66,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, default=30.0)
     ap.add_argument("--spans", type=Path)
+    ap.add_argument("--prefetch", choices=("thread", "inline"))
+    ap.add_argument("--switch-interval", type=float)
     args = ap.parse_args(argv)
 
     from portbench import harness, spans
@@ -79,12 +89,17 @@ def main(argv=None) -> int:
             return run_schedule(*a, **kw)
 
     cell.engine.run_schedule = traced_call
-    replay, in_replay = torch.cuda.CUDAGraph.replay, [0]
+    if args.prefetch is not None:
+        cell.engine.prefetch = args.prefetch
+    if args.switch_interval is not None:
+        sys.setswitchinterval(args.switch_interval)
+    replay, in_replay, replay_cpu = torch.cuda.CUDAGraph.replay, [0], [0]
 
     def timed_replay(graph):
-        t0 = time.perf_counter_ns()
+        t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
         replay(graph)
         in_replay[0] += time.perf_counter_ns() - t0
+        replay_cpu[0] += time.thread_time_ns() - c0
 
     third = args.seconds / 3
     torch.cuda.CUDAGraph.replay = timed_replay
@@ -146,6 +161,9 @@ def main(argv=None) -> int:
                   "paired": paired_rates,
                   "paired_cost": 1.0 - paired_rates["traced"] / paired_rates["untraced"]},
         "replay_ms_per_round": in_replay[0] / per_round,
+        "replay_cpu_ms_per_round": replay_cpu[0] / per_round,
+        "prefetch": cell.engine.prefetch,
+        "switch_interval_s": sys.getswitchinterval(),
         "backpressure_ms_per_round": sum(s.dur_ns for s in named("pipelined.wait")) / per_round,
         "bytes_per_round": counters.get("prefetch.bytes", 0) / sw.rounds,
         "device": torch.cuda.get_device_name(device),
