@@ -7,7 +7,10 @@ under a channel traffic mix) through the port's pipelined round engine::
 
 Everything a cell needs is found by name: ``configs/<config>.json`` (sizes;
 its ``model`` names ``models/<model>.py``, the port binding and FLOP
-counter, and ``reference/<model>.py``, the plain model),
+counter (``leaf_shapes``, ``init_params``, ``program_loss``,
+``port_params``, ``cpu_size``, ``forward_flops_per_sample``), and
+``reference/<model>.py``, the plain model's ``loss``; its ``data.kind``
+names ``data/<kind>.py``, the dataset and partition both sides take),
 ``traffic/<traffic>.json`` (the channel and the engine's feed, read by
 ``generator.py``, which finds each mechanism the mix names in
 ``topologies/``, ``channels/``, ``policies/`` and ``engines/``, and its

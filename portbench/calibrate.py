@@ -47,11 +47,11 @@ def readings(workload: str, seed: int, device, *, controls: bool) -> dict:
     gc.collect()
     ref = harness.reference_rounds(cfg, traffic, *shared, device)
     out = {"seed": seed, "program": check.compare(
-        shared[3], record.losses, record.x1, record.xk, *ref)}
+        record.losses, record.first, record.change, *ref)}
     if controls:
         for name, kw in STAND_INS.items():
             stand_in = harness.reference_rounds(cfg, traffic, *shared, device, **kw)
-            out[name] = check.compare(shared[3], *stand_in, *ref)
+            out[name] = check.compare(*stand_in, *ref)
     return out
 
 

@@ -44,7 +44,9 @@ def load_limits(root: Path, workload: str) -> dict[str, float]:
     return {name: float(limits["limits"][name]) for name in NUMBERS if name in limits["limits"]}
 
 
-def _norms(x: dict, x0: dict) -> dict[str, float]:
+def norms(x: dict, x0: dict) -> dict[str, float]:
+    """Each leaf's ‖x − x0‖, in double: what the two gaps of the weights
+    read, so a run holds the norms rather than a copy of x."""
     return {k: float(torch.linalg.vector_norm(x[k].double() - x0[k].double()))
             for k in x0}
 
@@ -61,16 +63,16 @@ def _worst_leaf_gap(prog: dict, ref: dict, kept: list[str]) -> float:
     return _worst(abs(prog[k] - ref[k]) / max(ref[k], median) for k in kept)
 
 
-def compare(x0: dict, prog_losses, prog_x1: dict, prog_xk: dict,
-            ref_losses, ref_x1: dict, ref_xk: dict) -> dict[str, float]:
+def compare(prog_losses, prog_first: dict, prog_change: dict,
+            ref_losses, ref_first: dict, ref_change: dict) -> dict[str, float]:
     """The four numbers of a program (or control) run against the
-    reference; parameters are flat dicts (leaf name → tensor)."""
+    reference, from each side's losses and its :func:`norms` of x1 − x0 and
+    xK − x0 (leaf name → float)."""
     gaps = [abs(a - b) / abs(b) for a, b in zip(prog_losses, ref_losses, strict=True)]
-    ref_first = _norms(ref_x1, x0)
     median = sorted(ref_first.values())[len(ref_first) // 2]
     kept = [k for k, v in ref_first.items() if v >= LEAF_FLOOR * median]
-    first = _worst_leaf_gap(_norms(prog_x1, x0), ref_first, kept)
-    change = _worst_leaf_gap(_norms(prog_xk, x0), _norms(ref_xk, x0), kept)
+    first = _worst_leaf_gap(prog_first, ref_first, kept)
+    change = _worst_leaf_gap(prog_change, ref_change, kept)
     return {"first_loss_gap": _worst(gaps[:1]), "loss_gap": _worst(gaps),
             "first_update_gap": first, "change_gap": change}
 

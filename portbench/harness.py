@@ -67,11 +67,13 @@ class Cell:
     policy: object
     loader: object
     generator: torch.Generator
+    lm: bool = False  # the data kind's rows are token sequences
     params: object = None
     server_state: object = None
 
     def next_batch(self):
-        return self.loader.round_batch(self.cfg["local_steps"], self.cfg["local_batch"])
+        return self.loader.round_batch(self.cfg["local_steps"], self.cfg["local_batch"],
+                                       lm=self.lm)
 
     def run(self, rounds: int, *, next_batch=None, policy=None):
         """One call of the engine over the next ``rounds`` rounds, ended by a
@@ -118,36 +120,39 @@ def build(cfg: dict, traffic: dict, seed: int, device) -> Cell:
                 x0=x0, sim=sim, engine=generator.program_engine(traffic, sim),
                 schedule=schedule, policy=policy,
                 loader=FederatedLoader(ds, parts, seed=seeds["loader"]),
-                generator=torch.Generator(device=device).manual_seed(seeds["tau"]))
+                generator=torch.Generator(device=device).manual_seed(seeds["tau"]),
+                lm=inputs.data_kind(cfg["data"]).LM)
     cell.params = ref_fl.unflatten({k: v.clone() for k, v in x0.items()})
     cell.server_state = sim.init_server_state(cell.params)
     return cell
 
 
-def flat_clone(params) -> dict:
-    return {k: v.detach().clone() for k, v in ref_fl.flatten(params).items()}
+def update_norms(cell: Cell) -> dict[str, float]:
+    """Each leaf's ‖x − x0‖ of the port's weights as they stand."""
+    return check.norms(ref_fl.flatten(cell.params), cell.x0)
 
 
 @dataclasses.dataclass
 class CheckRecord:
-    """What the port's first K rounds produced: each round's loss, and the
-    weights after the first round and after the K."""
+    """What the port's first K rounds produced: each round's loss, and each
+    leaf's norm of x1 − x0 (the first update) and of xK − x0 (the change),
+    taken as soon as the weights are made, so no copy of them is held."""
 
     losses: list
-    x1: dict
-    xk: dict
+    first: dict
+    change: dict
 
 
 def check_rounds(cell: Cell) -> CheckRecord:
     """Set-up's calls of the window's own entry, on the window's feed; the
     reference follows them.  They also load the kernels, warm the chunk
     shapes up and capture the full chunk."""
-    losses, x1 = [], None
+    losses, first = [], None
     for rounds in cell.traffic["check_calls"]:
         losses.extend(float(v) for v in cell.run(rounds))
-        if x1 is None:
-            x1 = flat_clone(cell.params)
-    return CheckRecord(losses, x1, flat_clone(cell.params))
+        if first is None:
+            first = update_norms(cell)
+    return CheckRecord(losses, first, update_norms(cell))
 
 
 @dataclasses.dataclass
@@ -231,8 +236,9 @@ def flops_per_round(cfg: dict) -> float:
 
 
 def span_window(cell: Cell, seconds: float):
-    """Blocks under the port's tracer (which fences every chunk, so it is
-    read only here): the window, and the spans and counters it recorded."""
+    """Blocks under the port's tracer (device spans from CUDA events; a
+    traced pipelined engine keeps at most two chunks queued, so it is read
+    only here): the window, and the spans and counters it recorded."""
     from repro_torch.obs import NULL_TRACER, Tracer
 
     tracer = Tracer()
@@ -317,17 +323,20 @@ def _idle_gaps(dev, lo: float, hi: float, host) -> list:
 
 def reference_rounds(cell_cfg: dict, traffic: dict, seeds: dict, ds, parts, x0: dict,
                      device, *, mode: str = "f32", fault: str | None = None):
-    """The reference's K rounds: (losses, x after round 1, x after round K)."""
+    """The reference's K rounds: (losses, the norms of x1 − x0, the norms of
+    xK − x0), each leaf's (:func:`check.norms`)."""
     k = sum(traffic["check_calls"])
     n, T, b = cell_cfg["n_clients"], cell_cfg["local_steps"], cell_cfg["local_batch"]
     states, matrices = generator.reference_channel(traffic, n, seeds, k)
+    lm = inputs.data_kind(cell_cfg["data"]).LM
     with ref_fl.precision(mode):
-        losses, xs = ref_fl.run_rounds(
-            cell_cfg["model"], x0, ref_fl.batch_stream(ds, parts, seeds["loader"], k, T, b),
+        return ref_fl.run_rounds(
+            cell_cfg["model"], x0,
+            ref_fl.batch_stream(ds, parts, seeds["loader"], k, T, b, lm=lm),
             ref_fl.taus(seeds["tau"], [p for _, p, _ in states], device), matrices,
             [active for _, _, active in states], lr=cell_cfg["lr"],
-            wd=cell_cfg["weight_decay"], device=device, fault=fault)
-    return losses, xs[0], xs[-1]
+            wd=cell_cfg["weight_decay"], device=device, fault=fault,
+            keep=lambda x: check.norms(x, x0))
 
 
 def device_info(device: torch.device) -> dict:
@@ -379,7 +388,8 @@ def run_cell(cell_spec: dict, cfg: dict, traffic: dict, limits: dict, *, seed: i
         attempted, failed = w.rounds, nonfinite_rounds(w)
         dev = device_info(device)
     else:
-        # a third of the seconds each: spans (fenced), untraced, profiled
+        # a third of the seconds each: under the port's tracer, untraced,
+        # profiled
         sw, spans, counters = span_window(cell, seconds / 3)
         uw = window(cell, seconds / 3)
         pw, busy_s, device_ops, breakdown = profile_window(cell, seconds / 3)
@@ -399,10 +409,9 @@ def run_cell(cell_spec: dict, cfg: dict, traffic: dict, limits: dict, *, seed: i
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ref_losses, ref_x1, ref_xk = reference_rounds(cfg, traffic, shared["seeds"], shared["ds"],
-                                                  shared["parts"], shared["x0"], device)
-    numbers = check.compare(shared["x0"], record.losses, record.x1, record.xk,
-                            ref_losses, ref_x1, ref_xk)
+    ref = reference_rounds(cfg, traffic, shared["seeds"], shared["ds"], shared["parts"],
+                           shared["x0"], device)
+    numbers = check.compare(record.losses, record.first, record.change, *ref)
     correct = check.verdict(numbers, limits) and failed == 0
     out = {"correct": correct, "attempted": attempted, "failed": failed, "metrics": metrics,
            "device": dev, **result}

@@ -1,14 +1,16 @@
 """The inputs a run makes from its seed and hands to both the port and the
-reference: the images, the client partition and the sub-seeds.
+reference: the dataset, the client partition and the sub-seeds.
 
-``cifar_like`` and ``iid_partition`` are frozen copies of
-``src/repro_torch/data/synthetic.py::cifar_like`` and
-``src/repro_torch/data/partition.py::iid_partition`` at commit c3a27a4:
-the benchmark's yardstick does not move when the port's generators do.
+A configuration's ``data.kind`` names the module that makes its dataset,
+``data/<kind>.py`` (``make`` and ``LM``), found by name.  ``iid_partition``
+is a frozen copy of ``src/repro_torch/data/partition.py::iid_partition``
+at commit c3a27a4: the benchmark's yardstick does not move when the port's
+generators do.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 import numpy as np
 
@@ -18,8 +20,9 @@ SEED_NAMES = ("data", "partition", "loader", "tau", "params")
 
 @dataclasses.dataclass(frozen=True)
 class Dataset:
-    """Images (N, 32, 32, 3) f32 NHWC and labels (N,) int32: what
-    ``FederatedLoader`` reads (``inputs`` and ``labels``)."""
+    """Inputs (N, ...) and labels (N,) int32, what ``FederatedLoader``
+    reads: f32 NHWC images and their classes, or (N, seq + 1) int32 token
+    sequences and their stream ids."""
 
     inputs: np.ndarray
     labels: np.ndarray
@@ -35,30 +38,17 @@ def sub_seeds(seed: int) -> dict[str, int]:
     return {name: int(s) >> 1 for name, s in zip(SEED_NAMES, state)}
 
 
-def cifar_like(n: int, *, n_classes: int = 10, snr: float = 2.0, seed: int = 0,
-               proto_seed: int = 12345) -> Dataset:
-    """10-class Gaussian-prototype images, CIFAR-shaped (32×32×3):
-    ``proto_seed`` fixes the class prototypes, ``seed`` draws the samples."""
-    protos = np.random.default_rng(proto_seed).normal(
-        size=(n_classes, 32, 32, 3)).astype(np.float32)
-    rng = np.random.default_rng(seed)
-    labels = rng.integers(0, n_classes, size=(n,))
-    noise = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
-    images = snr * protos[labels] + noise
-    images /= np.sqrt(1.0 + snr**2)
-    return Dataset(images.astype(np.float32), labels.astype(np.int32))
-
-
 def iid_partition(n_items: int, n_clients: int, *, seed: int = 0) -> list[np.ndarray]:
     """A random permutation cut into ``n_clients`` near-equal sorted parts."""
     idx = np.random.default_rng(seed).permutation(n_items)
     return [np.sort(part) for part in np.array_split(idx, n_clients)]
 
 
+def data_kind(data: dict):
+    """The module of a configuration's ``data`` block's kind."""
+    return importlib.import_module(f"portbench.data.{data['kind']}")
+
+
 def make_data(data: dict, n_clients: int, seeds: dict) -> tuple[Dataset, list[np.ndarray]]:
     """A configuration's ``data`` block → (dataset, client partitions)."""
-    if data["kind"] != "cifar_like" or data["partition"] != "iid":
-        raise ValueError(f"unknown data {data!r} (known: cifar_like, iid)")
-    ds = cifar_like(data["n_train"], n_classes=data["n_classes"], snr=data["snr"],
-                    seed=seeds["data"])
-    return ds, iid_partition(len(ds), n_clients, seed=seeds["partition"])
+    return data_kind(data).make(data, n_clients, seeds)

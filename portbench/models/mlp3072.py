@@ -1,5 +1,6 @@
 """The channel figures' MLP (3,072 → 256 → 10): the benchmark's weights, the
-port's loss and the FLOP count.
+port's loss, its own weights (the layout to match), the CPU tests' size and
+the FLOP count.
 
 The plain model is ``portbench/reference/mlp3072.py``; the port's is
 ``repro_torch.bench.figures.make_mlp`` (imported when the loss is asked
@@ -39,6 +40,20 @@ def program_loss(cfg: dict):
     m = cfg["model_shape"]
     _, _, loss = make_mlp(m["inputs"], m["hidden"], m["num_classes"], device="cpu")
     return loss
+
+
+def port_params(cfg: dict, seed: int) -> dict:
+    """The port's own initial weights, on the CPU: the layout
+    :func:`init_params` has to match leaf for leaf."""
+    from repro_torch.bench.figures import make_mlp
+
+    m = cfg["model_shape"]
+    return make_mlp(m["inputs"], m["hidden"], m["num_classes"], device="cpu")[0](seed)
+
+
+def cpu_size(cfg: dict) -> dict:
+    """The configuration the CPU tests run: this one as it is."""
+    return cfg
 
 
 def forward_flops_per_sample(cfg: dict) -> int:

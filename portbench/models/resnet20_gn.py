@@ -1,4 +1,5 @@
-"""ResNet-20/GN: the benchmark's weights, the port's loss and the FLOP count.
+"""ResNet-20/GN: the benchmark's weights, the port's loss, its own weights
+(the layout to match), the CPU tests' size and the FLOP count.
 
 The plain model is ``portbench/reference/resnet20_gn.py``; the port's is
 ``repro_torch.models.resnet`` (imported when the loss is asked for, so this
@@ -64,6 +65,21 @@ def program_loss(cfg: dict):
         return resnet20_loss(params, CONFIG, batch)
 
     return loss
+
+
+def port_params(cfg: dict, seed: int) -> dict:
+    """The port's own initial weights (nested), on the CPU: the layout
+    :func:`init_params` has to match leaf for leaf."""
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.models.resnet import init_resnet20
+
+    return init_resnet20(seed, CONFIG, device="cpu")
+
+
+def cpu_size(cfg: dict) -> dict:
+    """The configuration the CPU tests run: this one as it is (a round of
+    ResNet-20 at a few images runs in seconds there)."""
+    return cfg
 
 
 def forward_flops_per_sample(cfg: dict) -> int:

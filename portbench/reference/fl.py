@@ -42,14 +42,15 @@ def precision(mode: str):
          b.cudnn.benchmark) = saved
 
 
-def batch_stream(ds, parts, seed: int, rounds: int, T: int, b: int):
-    """The first ``rounds`` rounds' (images (n, T, b, ...), labels (n, T, b))."""
+def batch_stream(ds, parts, seed: int, rounds: int, T: int, b: int, *, lm: bool = False):
+    """The first ``rounds`` rounds' (inputs (n, T, b, ...), labels (n, T, b,
+    ...)), one round at a time; where ``lm``, each row is a token sequence
+    and the pair is its tokens ``x[..., :-1]`` and targets ``x[..., 1:]``."""
     rng = np.random.default_rng(seed)
-    out = []
     for _ in range(rounds):
         idx = np.stack([rng.choice(part, size=(T, b), replace=True) for part in parts])
-        out.append((ds.inputs[idx], ds.labels[idx]))
-    return out
+        x = ds.inputs[idx]
+        yield (x[..., :-1], x[..., 1:]) if lm else (x, ds.labels[idx])
 
 
 def taus(seed: int, ps, device) -> list[torch.Tensor]:
@@ -58,13 +59,14 @@ def taus(seed: int, ps, device) -> list[torch.Tensor]:
                             generator=gen) for p in ps]
 
 
-def local_update(loss_fn, x: dict, images, labels, *, lr: float, wd: float,
+def local_update(loss_fn, x: dict, inputs, labels, *, lr: float, wd: float,
                  fault: str | None = None):
-    """One client's T steps from x: (Δ as a flat dict of leaves, first loss)."""
+    """One client's T steps from x on its (T, b, ...) inputs and labels:
+    (Δ as a flat dict of leaves, first loss)."""
     p = {k: v.clone().requires_grad_(True) for k, v in x.items()}
     first = None
-    for t in range(images.shape[0]):
-        xs, ys = images[t], labels[t]
+    for t in range(inputs.shape[0]):
+        xs, ys = inputs[t], labels[t]
         if fault == "half_batch":
             xs, ys = xs[: xs.shape[0] // 2], ys[: ys.shape[0] // 2]
         loss = loss_fn(unflatten(p), xs, ys)
@@ -74,51 +76,56 @@ def local_update(loss_fn, x: dict, images, labels, *, lr: float, wd: float,
                  for (k, v), g in zip(p.items(), grads)}
         if first is None:
             first = loss.detach()
-    return {k: (p[k].detach() - x[k]) for k in x}, first
+    return {k: p[k].detach().sub_(x[k]) for k in x}, first
 
 
 def run_rounds(model: str, x0: dict, batches, tau_list, A_list, active_list, *, lr: float,
-               wd: float, device, fault: str | None = None):
+               wd: float, device, fault: str | None = None, keep=None):
     """The reference's rounds from the flat parameters ``x0`` (leaf name →
     tensor); ``active_list`` holds each round's membership mask, or None
-    where every client takes part.  Returns (per-round losses, x after each
-    round)."""
+    where every client takes part.  Each round's coefficients w·(τᵀA) come
+    first, and each client's coefficient × Δ_i is added into the round's
+    update u as soon as that client finishes, in ascending i, so no more
+    than one client's weights are held at a time.  Returns (per-round
+    losses, ``keep`` of x after the first round, ``keep`` of x after the
+    last); ``keep`` (default: a copy) is applied as soon as x is made."""
+    keep = keep or (lambda x: {k: v.clone() for k, v in x.items()})
     loss_fn = importlib.import_module(f"portbench.reference.{model}").loss
     x = {k: v.to(device=device, dtype=torch.float32).clone() for k, v in x0.items()}
-    losses, xs = [], []
-    for (images, labels), tau, A, active in zip(batches, tau_list, A_list, active_list,
+    losses, first_x = [], None
+    for (inputs, labels), tau, A, active in zip(batches, tau_list, A_list, active_list,
                                                 strict=True):
-        n = images.shape[0]
-        images = torch.as_tensor(images, device=device)
-        labels = torch.as_tensor(labels, device=device)
-        deltas, firsts = [], []
-        for i in range(n):
-            d, first = local_update(loss_fn, x, images[i], labels[i], lr=lr, wd=wd,
-                                    fault=fault)
-            deltas.append(d)
-            firsts.append(first)
+        n = inputs.shape[0]
         if fault == "relay_left_out":  # every relay forwards only its own update
             A = torch.eye(n)
         A = torch.as_tensor(A, dtype=torch.float32, device=device)
-        firsts = torch.stack(firsts)
         if active is None:
-            w, loss = 1.0 / n, firsts.mean()
+            w = 1.0 / n
         else:
             a = torch.as_tensor(active, dtype=torch.float32, device=device)
             members = torch.clamp(a.sum(), min=1.0)
-            w, loss = 1.0 / members, (firsts * a).sum() / members
+            w = 1.0 / members
             A, tau = A * a[:, None] * a[None, :], tau * a
         coeffs = w * (tau @ A)
-        new_x = {}
+        u = {k: torch.zeros_like(v) for k, v in x.items()}
+        firsts = []
+        for i in range(n):
+            d, first = local_update(
+                loss_fn, x, torch.as_tensor(np.ascontiguousarray(inputs[i]), device=device),
+                torch.as_tensor(np.ascontiguousarray(labels[i]), device=device), lr=lr, wd=wd,
+                fault=fault)
+            for k in x:
+                u[k] = u[k] + coeffs[i] * d[k]
+            del d  # Δ_i freed before the next client runs
+            firsts.append(first)
+        firsts = torch.stack(firsts)
+        loss = firsts.mean() if active is None else (firsts * a).sum() / members
         for k in x:
-            u = torch.zeros_like(x[k])
-            for i in range(n):
-                u = u + coeffs[i] * deltas[i][k]
-            new_x[k] = x[k] + u
-        x = new_x
+            x[k] = x[k] + u.pop(k)
         losses.append(float(loss))
-        xs.append({k: v.clone() for k, v in x.items()})
-    return losses, xs
+        if first_x is None:
+            first_x = keep(x)
+    return losses, first_x, keep(x)
 
 
 def unflatten(flat: dict) -> dict:

@@ -1,6 +1,7 @@
 """The benchmark's registry, counts and result line, on the CPU."""
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -31,6 +32,7 @@ def test_cell_files_found_by_name(cell):
     assert spec["config"] in CONFIGS and cfg["model"]
     importlib.import_module(f"portbench.models.{cfg['model']}")
     importlib.import_module(f"portbench.reference.{cfg['model']}")
+    assert isinstance(importlib.import_module(f"portbench.data.{cfg['data']['kind']}").LM, bool)
     # every mechanism the mix names is a module of its own, on both sides
     ch, pol = traffic["channel"], traffic["policy"]
     for module in (f"topologies.{ch['topology']['kind']}", f"channels.{ch['kind']}",
@@ -82,17 +84,19 @@ def test_mlp_flops_by_hand():
 
 @pytest.mark.parametrize("config", CONFIG_FILES)
 def test_weights_match_the_ports_layout(config):
-    from repro_torch.bench.figures import make_mlp
-    from repro_torch.configs.resnet20_cifar import CONFIG
-    from repro_torch.models.resnet import init_resnet20
     from repro_torch.utils import tree_flatten
 
     cfg = _cfg(config)
     mod = importlib.import_module(f"portbench.models.{cfg['model']}")
-    ours = mod.init_params(cfg, 5, "cpu")
-    assert sum(v.numel() for v in ours.values()) == cfg["num_params"]
-    port = (init_resnet20(0, CONFIG, device="cpu") if cfg["model"] == "resnet20_gn"
-            else make_mlp(device="cpu")[0](0))
+    # the published size by its shapes; the layouts at the CPU tests' size
+    assert sum(math.prod(s) for s in mod.leaf_shapes(cfg).values()) == cfg["num_params"]
+    small = mod.cpu_size(cfg)
+    ours = mod.init_params(small, 5, "cpu")
+    assert {k: tuple(v.shape) for k, v in ours.items()} == {
+        k: tuple(s) for k, s in mod.leaf_shapes(small).items()}
+    if small is cfg:
+        assert sum(v.numel() for v in ours.values()) == cfg["num_params"]
+    port = mod.port_params(small, 0)
     flat = harness.ref_fl.flatten(port)
     assert {k: tuple(v.shape) for k, v in flat.items()} == {
         k: tuple(v.shape) for k, v in ours.items()}
