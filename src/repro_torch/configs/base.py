@@ -127,6 +127,108 @@ class ModelConfig:
         return L * per + emb + d
 
 
+# --------------------------------------------------------------------------
+# DeepSeek-V2 (arXiv:2405.04434): latent attention, YaRN, DeepSeekMoE.  Port
+# only: the JAX package has no such model, so these are classes of their own
+# and ``ModelConfig`` keeps the reference's fields.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention without a query LoRA (§2.1.2–2.1.3): keys
+    of ``qk_nope_dim`` + ``qk_rope_dim`` (the decoupled RoPE part, one key
+    shared by the heads), values of ``v_head_dim``, K and V up-projected
+    from a latent of ``kv_lora_rank``."""
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN's RoPE scaling as DeepSeek-V2 applies it (``rope_scaling``);
+    the port takes ``mscale`` equal to ``mscale_all_dim``, as DeepSeek-V2
+    does (the rotated channels then keep their scale)."""
+    factor: float = 40.0
+    original_max_pos: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekMoEConfig:
+    """DeepSeekMoE (§2.2): ``n_routed`` experts of width ``expert_d_ff``
+    behind a softmax router with greedy top-``top_k`` (no renormalization,
+    scaled by ``routed_scale``), and ``n_shared`` shared experts, one SwiGLU
+    of ``n_shared · expert_d_ff``.  The layer computes the routed experts
+    ``[held_start, held_start + n_held)`` only (one chip's share under
+    expert parallelism; ``n_held == n_routed`` is the whole layer); each
+    holds ``capacity_factor · S · top_k / n_routed`` tokens a sequence and
+    drops the rest by position.  ``aux_alpha`` weighs the sequence-wise
+    balance loss, taken over all ``n_routed`` router outputs."""
+    n_routed: int = 64
+    top_k: int = 6
+    expert_d_ff: int = 1408
+    n_shared: int = 2
+    routed_scale: float = 1.0
+    n_held: int = 64
+    held_start: int = 0
+    capacity_factor: float = 1.25
+    aux_alpha: float = 0.001
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekConfig(ModelConfig):
+    """A DeepSeek-V2 stack: ``first_dense`` leading layers with a dense
+    SwiGLU of ``d_ff``, then DeepSeekMoE layers; every layer MLA; an untied
+    head over ``vocab``."""
+    mla: MLAConfig = MLAConfig()
+    yarn: YaRNConfig = YaRNConfig()
+    ds_moe: DeepSeekMoEConfig = DeepSeekMoEConfig()
+    first_dense: int = 1
+
+    def _attn_params(self) -> int:
+        d, m, H = self.d_model, self.mla, self.n_heads
+        return (d * H * m.qk_dim + d * (m.kv_lora_rank + m.qk_rope_dim) + m.kv_lora_rank
+                + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim) + H * m.v_head_dim * d)
+
+    def _ffn_params(self, routed: int) -> tuple[int, int]:
+        """(dense layer's, a MoE layer's with ``routed`` routed experts)."""
+        d, e = self.d_model, self.ds_moe
+        expert = 3 * d * e.expert_d_ff
+        return 3 * d * self.d_ff, routed * expert + e.n_shared * expert + d * e.n_routed
+
+    def _count(self, routed: int) -> int:
+        d, L = self.d_model, self.n_layers
+        dense, moe = self._ffn_params(routed)
+        per = self._attn_params() + 2 * d
+        return (L * per + self.first_dense * dense + (L - self.first_dense) * moe
+                + 2 * self.vocab * d + d)
+
+    def param_count(self) -> int:
+        """Every parameter this configuration holds: the held experts of each
+        MoE layer (all of them for the published model), the router at its
+        full width, the embedding and the untied head."""
+        return self._count(self.ds_moe.n_held)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through, by the port's convention for
+        MoE configurations (embedding table and head both counted): top_k
+        routed experts of each MoE layer, the shared experts, the router, the
+        attention and the dense layer.  Without the input embedding table
+        (a lookup) the published model reads 2.45·10⁹, DeepSeek's "2.4B
+        activated"."""
+        return self._count(self.ds_moe.top_k)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str

@@ -22,11 +22,18 @@ ARCHS = {
 
 ASSIGNED = [a for a in ARCHS if a != "resnet20-cifar"]
 
+# architectures the port runs that the JAX package has no counterpart of
+# (``ARCHS`` stays the reference's list); ``get_config`` finds both
+PORT_ONLY = {
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
+
 
 def _module(arch: str):
-    if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+    known = {**ARCHS, **PORT_ONLY}
+    if arch not in known:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(known)}")
+    return importlib.import_module(f"repro_torch.configs.{known[arch]}")
 
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:

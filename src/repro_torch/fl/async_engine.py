@@ -64,6 +64,7 @@ import torch
 from repro_torch.channels.delay import DelayProcess, ZeroDelays
 from repro_torch.core import relay as relay_lib
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.fl.simulator import refuse_clients_in_turn
 from repro_torch.obs import NULL_TRACER
 from repro_torch.utils import stacked_ravel, tree_map, tree_spec, tree_unravel
 
@@ -189,6 +190,7 @@ class AsyncRoundEngine:
                 "and 'fedavg_nonblind' renormalizes per round — neither "
                 "composes with staleness weighting)"
             )
+        refuse_clients_in_turn(sim.loss_fn, "AsyncRoundEngine")
         if not (0.0 < staleness_decay <= 1.0):
             raise ValueError(f"staleness_decay must be in (0, 1], got "
                              f"{staleness_decay}")

@@ -44,7 +44,7 @@ from repro_torch.core import aggregation
 from repro_torch.core import relay as relay_lib
 from repro_torch.core.aggregation import ServerOpt, active_weight
 from repro_torch.fl import ring as ring_lib
-from repro_torch.fl.simulator import local_updates
+from repro_torch.fl.simulator import local_updates, refuse_clients_in_turn
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.optim.sgd import ClientOpt
 from repro_torch.sharding import rules as sharding_rules
@@ -116,6 +116,7 @@ def build_round_step(
     this rank's column slice and gathers the slices.
     """
     kernel_ops.validate_backend(relay_backend)
+    refuse_clients_in_turn(loss_fn, "build_round_step")
     T = local_steps
     A_static = A
     fused = relay_mode == "fused"
@@ -359,6 +360,7 @@ def build_sharded_scan_round_step(
             f"client axis {axis!r}"
         )
     m = n_clients // k_shards
+    refuse_clients_in_turn(loss_fn, "build_sharded_scan_round_step")
     T = local_steps
     fused = relay_mode == "fused"
     grad_fn = torch.func.vmap(torch.func.grad_and_value(loss_fn))

@@ -83,7 +83,7 @@ from repro_torch.channels.scheduler import SegmentPrefetcher, _stack_host, _to_d
 from repro_torch.core import relay as relay_lib
 from repro_torch.fl.simulator import FLSimulator
 from repro_torch.obs import NULL_TRACER
-from repro_torch.obs.device import device_span, take_anchor
+from repro_torch.obs.device import device_span, host_copies, take_anchor
 from repro_torch.sharding import rules as sharding_rules
 from repro_torch.utils import resolve_device, tree_flatten, tree_map
 
@@ -161,6 +161,14 @@ def _concat_metrics(parts: list) -> Any:
 _TRACED_QUEUE = 2
 
 
+def _chunk_counts(per_round: list, device: torch.device) -> dict:
+    """A chunk's counters (the loss's, in each round's metrics) summed over
+    its rounds, their copies to the host enqueued behind the chunk."""
+    sums = {name: torch.stack([m["counters"][name] for m in per_round]).sum()
+            for name in per_round[0]["counters"]}
+    return host_copies(sums, device)
+
+
 def _event_after(device: torch.device) -> torch.cuda.Event | None:
     """An event recorded on the current stream behind the work enqueued so
     far; None on the CPU, where every op has finished when it returns."""
@@ -184,7 +192,8 @@ class _ChunkGraph:
     outputs (the next replay overwrites the graph's own).
 
     Before the capture the chunk runs once on a side stream, on clones,
-    which warms up cuBLAS, cuDNN, ``torch.func`` and the kernels' library.
+    which warms up cuBLAS, cuDNN, ``torch.func`` and the kernels' library;
+    the memory it cached is released before the capture.
     A chunk that draws from a generator (τ in the pipelined and sharded
     engines) draws in the graph from a private generator registered with
     it (``CUDAGraph.register_generator_state``): the warm-up draws from it
@@ -211,6 +220,10 @@ class _ChunkGraph:
         with torch.cuda.stream(side):
             fn(self._gen, *tree_map(torch.clone, self.static))
         torch.cuda.current_stream().wait_stream(side)
+        # the capture allocates from the graph's own pool, which cannot take
+        # the warm-up's cached blocks: hand them back first, or a chunk that
+        # fills most of the card would need twice its memory
+        torch.cuda.empty_cache()
         self.graph = torch.cuda.CUDAGraph()
         if self._gen is not None:
             self.graph.register_generator_state(self._gen)
@@ -496,8 +509,12 @@ class PipelinedScanEngine:
         older in a ``pipelined.wait`` span (category ``wait``), where the
         ResNet-20 chunk's replay would block inside the launch, so the
         dispatch span is the launch's host cost; the device keeps the other
-        chunk queued, so no steady rate changes.  Also settable after
-        construction via the ``tracer`` attribute.  ``capture=False`` runs
+        chunk queued, so no steady rate changes.  Where the rounds' metrics
+        carry the loss's counters (the DeepSeek-V2 stack's MoE counts), each
+        chunk's sums are copied to the host behind it and added to the
+        tracer's counters once the chunk's end event has completed
+        (``Tracer.device_count``).  Also settable after construction via
+        the ``tracer`` attribute.  ``capture=False`` runs
         every chunk eagerly."""
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
@@ -602,11 +619,15 @@ class PipelinedScanEngine:
                         generator, params, server_state, item.batches,
                         item.n_rounds, A_seg, p_seg, lr, active_seg,
                     )
+                counts = (_chunk_counts(ms, dev)
+                          if self.tracer.enabled and "counters" in ms[0] else None)
                 self.dispatches += 1
                 done = _event_after(dev)
                 prefetcher.note_inflight(done)
                 if done is not None:
                     queued.append(done)
+                if counts is not None:
+                    self.tracer.device_count(counts, done)
                 seg_parts.extend(ms)
                 if item.last_in_segment:
                     seg_metrics = _stack_metrics(seg_parts)

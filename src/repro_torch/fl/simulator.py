@@ -25,6 +25,7 @@ from repro_torch.utils import (
     tree_flatten,
     tree_map,
     tree_sub,
+    tree_unflatten,
     tree_unravel,
 )
 
@@ -33,24 +34,95 @@ def local_updates(grad_fn, client_opt: ClientOpt, params, batch, lr, steps: int)
     """``steps`` local SGD steps of every client from the broadcast
     ``params``: the stacked per-client deltas (leaves (n, ...)) and each
     client's loss at its first step.  ``grad_fn`` is
-    ``torch.func.vmap(torch.func.grad_and_value(loss_fn))``; ``batch`` has
-    leaves (n, steps, b, ...), n the clients this call runs (all of them,
-    or one rank's block in the sharded step)."""
+    ``torch.func.vmap(torch.func.grad_and_value(loss_fn))`` (or
+    :func:`client_grad_fn`'s); ``batch`` has leaves (n, steps, b, ...), n
+    the clients this call runs (all of them, or one rank's block in the
+    sharded step).  Where the gradient's value is ``(loss, counters)`` (a
+    loss with counters), the second result is ``(first loss, counters
+    summed over the steps)``, each counter (n,)."""
     n = tree_flatten(batch)[0][0].shape[0]
     start = tree_map(lambda x: x.unsqueeze(0).expand(n, *x.shape), params)
     p, s = start, client_opt.init(start)
-    first_loss = None
+    first_loss, counters = None, None
     for t in range(steps):
         minibatch = tree_map(lambda x: x[:, t], batch)
         grads, loss = grad_fn(p, minibatch)
+        if isinstance(loss, tuple):
+            loss, c = loss
+            counters = c if counters is None else tree_map(torch.add, counters, c)
         p, s = client_opt.step(p, grads, s, lr)
         if first_loss is None:
             first_loss = loss
-    return tree_sub(p, start), first_loss
+    return tree_sub(p, start), (first_loss if counters is None else (first_loss, counters))
 
 
-def _metrics(loss, tau, delta_norm):
-    return {"loss": loss, "tau": tau, "delta_norm": delta_norm}
+def client_grad_fn(loss_fn):
+    """Every client's ``(grads, value)`` of ``loss_fn`` at once, the
+    clients stacked on a leading dim of the parameters, the batch and the
+    results: ``torch.func.vmap(torch.func.grad_and_value(loss_fn))``.  A
+    loss whose ``clients_in_turn`` attribute is true runs the clients one
+    after another through plain autograd instead (:func:`_grads_in_turn`);
+    such a loss may return ``(loss, counters)``, and the value is then
+    ``(losses, counters)``, each stacked over the clients."""
+    if takes_clients_in_turn(loss_fn):
+        return _grads_in_turn(loss_fn)
+    return torch.func.vmap(torch.func.grad_and_value(loss_fn))
+
+
+def takes_clients_in_turn(loss_fn) -> bool:
+    """Whether ``loss_fn`` asks for its clients' gradients one at a time
+    (:func:`client_grad_fn`)."""
+    return getattr(loss_fn, "clients_in_turn", False)
+
+
+def refuse_clients_in_turn(loss_fn, engine: str) -> None:
+    """Raise for a loss that takes its clients in turn: ``engine`` vmaps
+    the loss itself and reads a scalar value, so only :class:`FLSimulator`
+    and the engines over its ``round_math`` run such a loss."""
+    if takes_clients_in_turn(loss_fn):
+        raise ValueError(f"{engine} vmaps the loss and reads a scalar: a loss that takes "
+                         "its clients in turn and returns (loss, counters) runs only "
+                         "through FLSimulator.run_round/round_math and their engines")
+
+
+def _grads_in_turn(loss_fn):
+    """The clients' ``(grads, value)`` one client at a time, each from
+    ``torch.autograd.grad`` of its own loss, written into the stacked
+    gradients.  ``torch.func.grad`` takes its gradient with
+    ``create_graph=True``, so under it every intermediate gradient of the
+    backward is kept until the backward ends; for a model whose activations
+    fill the card (DeepSeek-V2-Lite's stage at 4,096 tokens on an H100: 22.7
+    GB a client and step against 4.8 GB of saved activations) that leaves
+    room for one client's backward, not n.  Here one client's activations are
+    alive at a time and nothing of a backward is kept."""
+
+    def grad_fn(params, batch):
+        leaves, treedef = tree_flatten(params)
+        n = tree_flatten(batch)[0][0].shape[0]
+        grads = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in leaves]
+        values, auxes = [], []
+        for i in range(n):
+            mine = [x[i].detach().requires_grad_() for x in leaves]
+            with torch.enable_grad():
+                out = loss_fn(tree_unflatten(treedef, mine), tree_map(lambda b: b[i], batch))
+                loss, aux = out if isinstance(out, tuple) else (out, None)
+                for dst, g in zip(grads, torch.autograd.grad(loss, mine), strict=True):
+                    dst[i].copy_(g)
+            values.append(loss.detach())
+            auxes.append(aux)
+        value = torch.stack(values)
+        if auxes[0] is not None:
+            value = (value, tree_map(lambda *xs: torch.stack(xs), *auxes))
+        return tree_unflatten(treedef, grads), value
+
+    return grad_fn
+
+
+def _metrics(loss, tau, delta_norm, counters=None):
+    m = {"loss": loss, "tau": tau, "delta_norm": delta_norm}
+    if counters is not None:
+        m["counters"] = counters
+    return m
 
 
 class FLSimulator:
@@ -59,6 +131,11 @@ class FLSimulator:
 
     ``loss_fn(params, batch) -> scalar`` is a pure function of a parameter
     dict and one client's minibatch; it must be traceable by ``torch.func``.
+    The clients' gradients come from :func:`client_grad_fn`; a loss that
+    takes its clients in turn may return ``(scalar, counters)``, counters a
+    dict of integer tensors (the DeepSeek-V2 stack's MoE counts), and each
+    round's metrics then carry them under ``"counters"``, summed over the
+    steps and the (live) clients.
 
     The relay matrix A, the connectivity vector p and the churn mask
     ``active`` are *round inputs*: ``run_round`` takes fresh values every
@@ -113,7 +190,7 @@ class FLSimulator:
         self.aggregator = aggregation.make_aggregator(
             strategy, n=n_clients, relay_backend=relay_backend
         )
-        self._grad_fn = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+        self._grad_fn = client_grad_fn(loss_fn)
 
     def _to_device(self, tree):
         return tree_map(lambda x: torch.as_tensor(x, device=self.device), tree)
@@ -128,6 +205,7 @@ class FLSimulator:
         """One round on given τ: the counterpart of the JAX package's
         ``FLSimulator._round_math``."""
         deltas, losses = self._client_updates(params, batch, lr)
+        losses, counters = losses if isinstance(losses, tuple) else (losses, None)
         # ravel the stacked deltas once: the aggregation hot spot (and the
         # kernel backends behind it) see one contiguous (n, D) buffer, while
         # the clients above ran on the structured view
@@ -146,7 +224,11 @@ class FLSimulator:
             mean_loss = (losses * active).sum() / denom
             dn = (per_client_dn * active).sum() / denom
             tau = tau * active
-        return new_params, new_state, _metrics(mean_loss, tau, torch.sqrt(dn))
+            if counters is not None:
+                counters = tree_map(lambda c: c * (active > 0), counters)
+        if counters is not None:
+            counters = tree_map(lambda c: c.sum(), counters)
+        return new_params, new_state, _metrics(mean_loss, tau, torch.sqrt(dn), counters)
 
     def run_round(
         self, generator, params, server_state, batch, lr, *, A=None, p=None,

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
@@ -327,3 +328,137 @@ def decode_attention(p, x1, cache, pos, cfg: ModelConfig, *, window: int = 0):
     w = torch.softmax(scores, dim=-1)
     out = _gqa_out(w, cv, p, cfg)
     return out, {"k": ck, "v": cv, "pos": cpos}
+
+
+# --------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434 §2.1) and a
+# causal attention whose backward recomputes its blocks
+# --------------------------------------------------------------------------
+
+# query rows a block of the recomputing attention: its transient scores are
+# (B, H, MLA_Q_CHUNK, keys up to the block's end)
+MLA_Q_CHUNK = 512
+
+
+def init_mla(gen, cfg, *, lead=()):
+    """W_q (no query LoRA), W_kva (the latent and the shared RoPE key), the
+    latent's RMSNorm, W_kvb (per-head no-position keys and values) and
+    W_o."""
+    d, H, m = cfg.d_model, cfg.n_heads, cfg.mla
+    return {
+        "q": common.init_dense(gen, d, H * m.qk_dim, cfg.pdtype, lead=lead),
+        "kv_a": common.init_dense(gen, d, m.kv_lora_rank + m.qk_rope_dim, cfg.pdtype,
+                                  lead=lead),
+        "kv_norm": common.init_rmsnorm(m.kv_lora_rank, cfg.pdtype, device=gen.device,
+                                       lead=lead),
+        "kv_b": common.init_dense(gen, m.kv_lora_rank, H * (m.qk_nope_dim + m.v_head_dim),
+                                  cfg.pdtype, lead=lead),
+        "o": common.init_dense(gen, H * m.v_head_dim, d, cfg.pdtype, lead=lead),
+    }
+
+
+def mla_attention(p, x, positions, cfg):
+    """Causal MLA over x (B, S, D) at positions 0..S−1 (B, S): q = W_q h
+    split into q_nope and q_pe a head; [c_kv; k_pe] = W_kva h, c_kv ←
+    RMSNorm(c_kv); [k_nope; v] = W_kvb c_kv a head; YaRN RoPE on q_pe and
+    on the one k_pe all heads share; softmax at
+    :func:`common.mla_softmax_scale`; W_o.  Returns (B, S, D)."""
+    B, S, _ = x.shape
+    H, m = cfg.n_heads, cfg.mla
+    q = common.dense(p["q"], x, cdtype=cfg.cdtype).reshape(B, S, H, m.qk_dim)
+    q_nope, q_pe = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    c_kv, k_pe = common.dense(p["kv_a"], x, cdtype=cfg.cdtype).split(
+        [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c_kv = common.rmsnorm(p["kv_norm"], c_kv, eps=cfg.norm_eps)
+    kv = common.dense(p["kv_b"], c_kv, cdtype=cfg.cdtype).reshape(
+        B, S, H, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+    inv = common.yarn_rope_freqs(cfg, x.device)
+    q_pe = common.apply_rope_inv(q_pe, positions, inv, m.qk_rope_dim)
+    k_pe = common.apply_rope_inv(k_pe[:, :, None, :], positions, inv, m.qk_rope_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(B, S, H, m.qk_rope_dim)], dim=-1)
+    o = causal_attention(q, k, v, scale=common.mla_softmax_scale(cfg))
+    return common.dense(p["o"], o.reshape(B, S, H * m.v_head_dim), cdtype=cfg.cdtype)
+
+
+def causal_attention(q, k, v, *, scale: float, q_chunk: int = MLA_Q_CHUNK):
+    """softmax(scale · q kᵀ, causal) v for q, k (B, S, H, dk) and v (B, S, H,
+    dv) at positions 0..S−1; returns (B, S, H, dv).  Computed a block of
+    ``q_chunk`` query rows at a time against the keys up to the block's end
+    (the blocks above the diagonal are never computed), each row's softmax
+    whole.  The backward keeps q, k, v, the output and each row's
+    log-sum-exp only, and recomputes each block's probabilities from them,
+    so no (S, S) tensor outlives its block.  Composes with
+    ``torch.func.vmap(grad)`` (its vmap rule is generated from these torch
+    ops) and with CUDA-graph capture (nothing waits on the host)."""
+    return _CausalAttention.apply(q, k, v, float(scale), min(int(q_chunk), q.shape[1]))[0]
+
+
+def _blocks(S: int, qc: int):
+    return [(a, min(a + qc, S)) for a in range(0, S, qc)]
+
+
+def _block_scores(qh, kh, a: int, b: int, scale: float):
+    """Scores of query rows [a, b) against keys [0, b), (..., H, b − a, b),
+    causally masked with NEG_INF."""
+    s = (qh[..., a:b, :] @ kh[..., :b, :].transpose(-1, -2)) * scale
+    rows = torch.arange(a, b, device=qh.device)[:, None]
+    cols = torch.arange(b, device=qh.device)[None, :]
+    return torch.where(cols <= rows, s, NEG_INF)
+
+
+class _CausalAttention(torch.autograd.Function):
+    """The blocks of :func:`causal_attention`: forward returns (out, lse),
+    backward recomputes P = exp(S − lse) a block at a time (FlashAttention-2's
+    backward in torch ops: dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − rowsum(dO ∘
+    O)), dQ = scale · dS K, dK = scale · dSᵀ Q)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, scale, qc):
+        # (B, H, S, d) contiguous, so each block is a strided batch of matrices
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        S = q.shape[1]
+        outs, lses = [], []
+        for a, b in _blocks(S, qc):
+            s = _block_scores(qh, kh, a, b, scale)
+            lse = torch.logsumexp(s, dim=-1)
+            outs.append(torch.exp(s - lse[..., None]) @ vh[..., :b, :])
+            lses.append(lse)
+        out = torch.cat(outs, dim=-2).transpose(1, 2)  # (B, S, H, dv)
+        return out, torch.cat(lses, dim=-1)  # lse (B, H, S)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, qc = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.qc = scale, qc
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout, _dlse):
+        # once differentiable: under ``torch.func.grad`` (create_graph=True)
+        # nothing of this backward is recorded, so no block's probabilities
+        # outlive it
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, S = ctx.scale, q.shape[1]
+        qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, dout))
+        delta = (dout * out).sum(dim=-1).transpose(1, 2)  # (B, H, S)
+        dqs, dk, dv = [], None, None
+        for a, b in _blocks(S, ctx.qc):
+            p = torch.exp(_block_scores(qh, kh, a, b, scale) - lse[..., a:b, None])
+            do = doh[..., a:b, :]
+            ds = p * (do @ vh[..., :b, :].transpose(-1, -2) - delta[..., a:b, None]) * scale
+            dqs.append(ds @ kh[..., :b, :])
+            # the keys [0, b) this block reaches, padded to S rows
+            pad = (0, 0, 0, S - b)
+            dk_b = F.pad(ds.transpose(-1, -2) @ qh[..., a:b, :], pad)
+            dv_b = F.pad(p.transpose(-1, -2) @ do, pad)
+            dk = dk_b if dk is None else dk + dk_b
+            dv = dv_b if dv is None else dv + dv_b
+        dq = torch.cat(dqs, dim=-2)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None, None

@@ -14,6 +14,8 @@ the JAX package's parameters across instead (``utils.from_jax_params``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -109,9 +111,53 @@ def rope_freqs(cfg: ModelConfig, device=None):
     return inv, rot
 
 
+def yarn_rope_freqs(cfg, device=None):
+    """YaRN's inverse frequencies for DeepSeek-V2's decoupled RoPE width
+    (``cfg.mla.qk_rope_dim``), f64 rounded once to f32 as
+    :func:`rope_freqs`: below the correction range (dimension pairs that
+    turn more than ``beta_fast`` times over the original context) θ^(−2i/d)
+    as it is, above it (fewer than ``beta_slow`` turns) divided by
+    ``factor``, and a linear ramp between.  The cos and sin are left
+    unscaled: YaRN scales them by yarn_mscale(factor, mscale) /
+    yarn_mscale(factor, mscale_all_dim), which is 1 for DeepSeek-V2, whose
+    two are equal."""
+    d, base, y = cfg.mla.qk_rope_dim, cfg.rope_theta, cfg.yarn
+    expo = torch.arange(0, d, 2, dtype=torch.float64, device=device) / d
+    extra = 1.0 / base ** expo
+
+    def corr_dim(turns):
+        return d * math.log(y.original_max_pos / (turns * 2 * math.pi)) / (2 * math.log(base))
+
+    low = max(math.floor(corr_dim(y.beta_fast)), 0)
+    high = min(math.ceil(corr_dim(y.beta_slow)), d - 1)
+    if low == high:
+        high += 0.001
+    # 0 where the frequency is kept, 1 where it is divided by the factor
+    ramp = ((torch.arange(d // 2, dtype=torch.float64, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return (extra / y.factor * ramp + extra * (1 - ramp)).float()
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature factor, 0.1·mscale·ln(factor) + 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def mla_softmax_scale(cfg) -> float:
+    """DeepSeek-V2's softmax scale: (qk_nope + qk_rope)^-½, times
+    ``yarn_mscale(factor, mscale_all_dim)`` squared under YaRN."""
+    return cfg.mla.qk_dim ** -0.5 * yarn_mscale(cfg.yarn.factor, cfg.yarn.mscale_all_dim) ** 2
+
+
 def apply_rope(x, positions, cfg: ModelConfig):
     """x: (..., S, H, hd); positions: (..., S) int."""
     inv, rot = rope_freqs(cfg, x.device)
+    return apply_rope_inv(x, positions, inv, rot)
+
+
+def apply_rope_inv(x, positions, inv, rot: int):
+    """Rotate the interleaved pairs of x's first ``rot`` channels by
+    position × ``inv``; x: (..., S, H, hd); positions: (..., S) int."""
     if rot == 0:
         return x
     ang = positions[..., :, None].float() * inv  # (..., S, rot/2)

@@ -111,3 +111,106 @@ def _moe_ffn_group(p, x, cfg: ModelConfig):
     gathered = gathered * weight[..., None]
     out = gathered.reshape(B, T, K, D).sum(dim=2)
     return out, aux
+
+
+# --------------------------------------------------------------------------
+# DeepSeekMoE (DeepSeek-V2, arXiv:2405.04434 §2.2): shared experts, greedy
+# top-k over a softmax router without renormalization, and a layer that
+# computes only the routed experts it holds
+# --------------------------------------------------------------------------
+
+
+def init_ds_moe(gen, cfg, *, lead=()):
+    """The router over all ``n_routed`` experts, the held experts' SwiGLU
+    weights (``lead + (n_held, ...)``) and the shared experts' one SwiGLU
+    of ``n_shared · expert_d_ff``."""
+    d, e = cfg.d_model, cfg.ds_moe
+    f = e.expert_d_ff
+
+    def ew(din, dout):
+        return common._normal(gen, (*lead, e.n_held, din, dout), din**-0.5, cfg.pdtype)
+
+    return {
+        "router": common.init_dense(gen, d, e.n_routed, cfg.pdtype, lead=lead),
+        "gate": ew(d, f),
+        "up": ew(d, f),
+        "down": ew(f, d),
+        "shared": common.init_mlp(gen, cfg, d_ff=e.n_shared * f, lead=lead),
+    }
+
+
+def ds_capacity(cfg, S: int) -> int:
+    """Tokens a held expert takes from one sequence of S:
+    capacity_factor · S · top_k / n_routed."""
+    e = cfg.ds_moe
+    return max(1, int(e.capacity_factor * S * e.top_k / e.n_routed))
+
+
+def ds_moe_ffn(p, x, cfg):
+    """x (B, S, D) → (out (B, S, D), balance loss (scalar), counters).
+
+    Each row (a sequence) routes on its own: softmax over the router's
+    ``n_routed`` outputs, greedy top-``top_k`` scaled by ``routed_scale``
+    and not renormalized.  Of the routed part only the held experts' is
+    computed; a choice of an absent expert adds nothing.  A held expert
+    takes its first :func:`ds_capacity` choosing tokens by position and
+    drops the rest.  The shared experts see every token.  The balance loss
+    is DeepSeek-V2's sequence-wise one over all ``n_routed`` experts, α ·
+    Σ_i f_i P_i with f_i the share of the row's choices that picked i times
+    n_routed / top_k and P_i the row's mean probability, averaged over the
+    rows.  ``counters``: ``moe.choices_here`` (choices of held experts) and
+    ``moe.choices_dropped`` (of those, dropped at capacity), int64 sums over
+    the rows.
+
+    The held experts' tokens are gathered into an (n_held, C, D) slab, so
+    the expert matmuls do the slab's work alone; each expert's rows go back
+    by a scatter into their tokens' rows (a token reaches an expert once, so
+    no two rows of one scatter collide, and the experts' parts are added in
+    expert order: deterministic)."""
+    e = cfg.ds_moe
+    B, S, D = x.shape
+    E, K, Hh = e.n_routed, e.top_k, e.n_held
+    C = ds_capacity(cfg, S)
+
+    probs = torch.softmax(common.dense(p["router"], x, cdtype=torch.float32), dim=-1)
+    weights, ids = torch.topk(probs, K, dim=-1)  # (B, S, K)
+    weights = weights * e.routed_scale
+
+    picked = _one_hot(ids, E, torch.float32).sum(dim=2)  # (B, S, E): 1 where chosen
+    f = picked.sum(dim=1) * (E / (S * K))
+    aux = e.aux_alpha * torch.mean(torch.sum(f * probs.mean(dim=1), dim=-1))
+
+    # the held experts' part: chosen[b, t, h] and its weight
+    local = ids - e.held_start
+    sel = (local[..., None] == torch.arange(Hh, device=x.device)).to(torch.float32)
+    chosen = sel.sum(dim=2) > 0  # (B, S, Hh)
+    gate = (sel * weights[..., None]).sum(dim=2)  # (B, S, Hh)
+    pos = torch.cumsum(chosen.long(), dim=1) - chosen.long()  # exclusive, by position
+    kept = chosen & (pos < C)
+    counters = {"moe.choices_here": chosen.sum(), "moe.choices_dropped": (chosen & ~kept).sum()}
+
+    # slot table (B, Hh, C): the token each slot holds, S for an empty slot;
+    # a token not kept writes to the dump column C
+    col = torch.where(kept, pos, C).transpose(1, 2)  # (B, Hh, S)
+    tok = torch.arange(S, device=x.device).expand(B, Hh, S)
+    table = torch.full((B, Hh, C + 1), S, dtype=torch.long, device=x.device)
+    table = table.scatter(2, col, tok)[..., :C]
+
+    xc = x.to(cfg.cdtype)
+    xpad = torch.cat([xc, torch.zeros((B, 1, D), dtype=cfg.cdtype, device=x.device)], dim=1)
+    flat = table.reshape(B, Hh * C)
+    eb = torch.gather(xpad, 1, flat[..., None].expand(B, Hh * C, D)).reshape(B, Hh, C, D)
+    act = common.activation(cfg.act)
+    h = act(torch.einsum("becd,edf->becf", eb, p["gate"].to(cfg.cdtype))) * torch.einsum(
+        "becd,edf->becf", eb, p["up"].to(cfg.cdtype))
+    y = torch.einsum("becf,efd->becd", h, p["down"].to(cfg.cdtype))  # (B, Hh, C, D)
+    gpad = torch.cat([gate, torch.zeros((B, 1, Hh), device=x.device)], dim=1).transpose(1, 2)
+    y = y * torch.gather(gpad, 2, table).to(cfg.cdtype)[..., None]  # empty slots weigh 0
+
+    routed = None
+    for i in range(Hh):
+        part = torch.zeros((B, S + 1, D), dtype=cfg.cdtype, device=x.device).scatter(
+            1, table[:, i, :, None].expand(B, C, D), y[:, i])
+        routed = part if routed is None else routed + part
+    out = routed[:, :S] + common.mlp(p["shared"], x, cfg)
+    return out, aux, counters

@@ -105,6 +105,19 @@ def get_model(cfg: ModelConfig) -> ModelDef:
             decode=lambda p, c, t: decode_fn(p, cfg, c, t),
             init_cache=lambda bs, sl, device=None: cache_fn(cfg, bs, sl, device=device),
         )
+    if fam == "deepseek":
+        def loss(p, b):
+            return stacks.deepseek_loss(p, cfg, b)
+
+        # FLSimulator takes its clients' gradients in turn
+        # (fl/simulator.py::client_grad_fn) and carries the counters the loss
+        # returns beside itself in the round's metrics
+        loss.clients_in_turn = True
+        return ModelDef(
+            cfg,
+            init=lambda seed, device=None: stacks.init_deepseek(seed, cfg, device=device),
+            loss=loss,
+        )
     if fam == "resnet":
         return ModelDef(
             cfg,

@@ -211,6 +211,77 @@ def lm_decode(params, cfg: ModelConfig, cache, tokens):
 
 
 # --------------------------------------------------------------------------
+# DeepSeek-V2: MLA in every layer; ``first_dense`` leading layers with a dense
+# SwiGLU, then DeepSeekMoE layers; an untied head
+# --------------------------------------------------------------------------
+
+
+def _init_ds_block(gen, cfg, moe_layer: bool, lead=()):
+    dev = gen.device
+    p = {
+        "ln1": common.init_rmsnorm(cfg.d_model, cfg.pdtype, device=dev, lead=lead),
+        "attn": attention.init_mla(gen, cfg, lead=lead),
+        "ln2": common.init_rmsnorm(cfg.d_model, cfg.pdtype, device=dev, lead=lead),
+    }
+    if moe_layer:
+        p["moe"] = moe.init_ds_moe(gen, cfg, lead=lead)
+    else:
+        p["mlp"] = common.init_mlp(gen, cfg, lead=lead)
+    return p
+
+
+def init_deepseek(seed: int, cfg, *, device=None):
+    """{"embed", "dense": the leading layers stacked, "blocks": the MoE
+    layers stacked, "norm", "head"}."""
+    gen = _generator(seed, device)
+    return {
+        "embed": common.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.pdtype),
+        "dense": common.stack_layers(
+            lambda g, lead: _init_ds_block(g, cfg, False, lead), gen, cfg.first_dense),
+        "blocks": common.stack_layers(
+            lambda g, lead: _init_ds_block(g, cfg, True, lead), gen,
+            cfg.n_layers - cfg.first_dense),
+        "norm": common.init_rmsnorm(cfg.d_model, cfg.pdtype, device=gen.device),
+        "head": common.init_dense(gen, cfg.d_model, cfg.vocab, cfg.pdtype),
+    }
+
+
+def _ds_block(p, x, positions, cfg):
+    x = x + attention.mla_attention(p["attn"], common.rmsnorm(p["ln1"], x, eps=cfg.norm_eps),
+                                    positions, cfg)
+    h = common.rmsnorm(p["ln2"], x, eps=cfg.norm_eps)
+    if "moe" in p:
+        m, aux, counters = moe.ds_moe_ffn(p["moe"], h, cfg)
+        return x + m, aux, counters
+    return x + common.mlp(p["mlp"], h, cfg), None, None
+
+
+def deepseek_backbone(params, cfg, tokens):
+    """(hidden states (B, S, D), the MoE layers' balance losses summed, their
+    counters summed)."""
+    B, S = tokens.shape
+    x = common.embed(params["embed"], tokens, cdtype=cfg.cdtype)
+    pos = _positions(B, S, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counters = None
+    for i in range(cfg.first_dense):
+        x, _, _ = _ds_block(_layer(params["dense"], i), x, pos, cfg)
+    for i in range(cfg.n_layers - cfg.first_dense):
+        x, a, c = _ds_block(_layer(params["blocks"], i), x, pos, cfg)
+        aux = aux + a
+        counters = c if counters is None else tree_map(torch.add, counters, c)
+    return x, aux, counters
+
+
+def deepseek_loss(params, cfg, batch):
+    """(mean next-token CE + the balance losses, the MoE counters): the
+    counters ride beside the loss out of the local update
+    (``FLSimulator``'s gradient of a loss with counters)."""
+    x, aux, counters = deepseek_backbone(params, cfg, batch["tokens"])
+    return _chunked_ce(params, cfg, x, batch["labels"]) + aux, counters
+
+
+# --------------------------------------------------------------------------
 # VLM: groups of (cross_attn_every - 1) self layers + 1 gated cross layer
 # --------------------------------------------------------------------------
 

@@ -16,7 +16,7 @@ import contextlib
 
 import torch
 
-__all__ = ["device_span", "take_anchor"]
+__all__ = ["device_span", "host_copies", "take_anchor"]
 
 _OFF = contextlib.nullcontext()
 
@@ -81,3 +81,19 @@ def device_span(tracer, name: str, device: torch.device, *, stream=None, **attrs
     if stream is None:
         stream = torch.cuda.current_stream(device)
     return _EventSpan(tracer, name, stream, attrs)
+
+
+def host_copies(values: dict, device: torch.device) -> dict:
+    """``values`` (name → a 0-d device tensor) copied to pinned host
+    tensors, the copies enqueued on the current stream without waiting: an
+    event recorded after this call completes once they are filled (what
+    ``Tracer.device_count`` waits for).  On the CPU, ``values`` as they
+    are."""
+    if device.type != "cuda":
+        return values
+    out = {}
+    for name, v in values.items():
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host.copy_(v, non_blocking=True)
+        out[name] = host
+    return out

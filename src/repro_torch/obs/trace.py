@@ -30,7 +30,9 @@ three kinds of facts into a bounded in-memory buffer:
   schedule uses these for epoch boundaries.
 * **counters** — ``tracer.count("opt_alpha.cache_hits")`` accumulates
   monotonic totals (ints or floats).  Counters are aggregates, not events:
-  they cost a dict update, never buffer space.
+  they cost a dict update, never buffer space.  A count the device computes
+  (``Tracer.device_count``) is held, like a device span, until the event
+  behind its copy to the host has completed, and added on the next read.
 
 Everything is thread-safe (spans record on exit under one lock; nesting
 depth is tracked per-thread), and the buffer is bounded: past
@@ -213,7 +215,8 @@ class Tracer:
     inject a deterministic counter for golden-value assertions.  ``events``
     is the bounded buffer (read it directly or through the exporters in
     :mod:`repro_torch.obs.export`; reading it turns the device spans whose
-    events have completed into events); ``counters`` the accumulated totals;
+    events have completed into events); ``counters`` the accumulated totals
+    (reading it adds the device counts whose event has completed);
     ``dropped`` how many events the bound rejected (a pending device span
     holds its place in the bound).  One tracer times one device: device
     spans are placed through its latest anchor.
@@ -235,8 +238,9 @@ class Tracer:
         self._local = threading.local()
         self._events: list[SpanEvent | InstantEvent] = []
         self._pending: list[_PendingSpan] = []
+        self._pending_counts: list[tuple] = []  # (event, {name: host value})
         self._anchor: tuple | None = None
-        self.counters: CounterDict[str, Any] = {}
+        self._counters: CounterDict[str, Any] = {}
         self.dropped = 0
         self.thread_names: dict[int, str] = {}
         self.t_start_ns = clock()
@@ -264,7 +268,29 @@ class Tracer:
     def count(self, name: str, value=1):
         """Accumulate a monotonic counter (int or float)."""
         with self._lock:
-            self.counters[name] = self.counters.get(name, 0) + value
+            self._add(name, value)
+
+    def _add(self, name: str, value) -> None:
+        self._counters[name] = self._counters.get(name, 0) + value
+
+    def device_count(self, values: dict, event) -> None:
+        """Accumulate counters whose values the device computed: ``values``
+        maps a name to a host tensor (or number) that a copy enqueued before
+        ``event`` fills.  They are added, as integers, once ``event`` has
+        completed (:meth:`flush`); at once where ``event`` is None (the
+        CPU, where the copy has finished).  Nothing here waits on the
+        device."""
+        with self._lock:
+            if event is None:
+                for name, v in values.items():
+                    self._add(name, int(v))
+            else:
+                self._pending_counts.append((event, values))
+
+    @property
+    def counters(self) -> CounterDict[str, Any]:
+        self.flush()
+        return self._counters
 
     def _full(self, tid: int) -> bool:
         """Under the lock: name the recording thread (always the current
@@ -319,8 +345,17 @@ class Tracer:
 
     def flush(self) -> None:
         """Turn every pending device span whose two events have completed
-        into a :class:`SpanEvent` (``clock="device"``, depth 0)."""
+        into a :class:`SpanEvent` (``clock="device"``, depth 0), and add every
+        pending device count whose event has completed."""
         with self._lock:
+            keep = []
+            for event, values in self._pending_counts:
+                if not event.query():
+                    keep.append((event, values))
+                    continue
+                for name, v in values.items():
+                    self._add(name, int(v))
+            self._pending_counts = keep
             keep = []
             for p in self._pending:
                 if not (p.start.query() and p.end.query()):
